@@ -1,0 +1,234 @@
+"""Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (each prints its result; any failure exits non-zero):
+  1. require a CUDA card; print its name and power limit (nvidia-smi),
+     the torch and CUDA versions;
+  2. build the kernels from tfhe_omr_tpu_torch/csrc with nvcc;
+  3. hold each kernel bit-equal to its plain torch version on the card at
+     the main path's shapes (NTT q1 at 7*1024 rows and q2 at 2*1024 rows;
+     both blind rotations with all 256 / 335 steps on a 32-message
+     sub-batch; the trace on 32 messages), timing both;
+  4+5. the omd oracle at the reference parameters, B = 1024 (8 pertinent
+     messages, 1016 from a second key pack): key generation on the card,
+     clues, detect through the kernels, decrypt, [1,0,...,0] / zeros; every
+     kernel's launch count must have grown, and the first 32 outputs must
+     equal the plain path's detect on the card;
+  6. warm detect throughput at B = 1024 (median of 3) and its stage split.
+The line before the last is a JSON record of the kernels; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+SEED = 20261016
+BATCH = 1024
+PERTINENT = 8
+SUB = 32  # messages in the kernel-vs-plain comparisons of the long chains
+
+# (counter name, JSON name, source, the TPU kernel it replaces)
+KERNELS = [
+    ("ntt1", "ntt_q1", "tfhe_omr_tpu_torch/csrc/ntt.cu",
+     "tfhe_omr_tpu/ops/pallas_ntt.py:190"),
+    ("ntt2", "ntt_q2", "tfhe_omr_tpu_torch/csrc/ntt.cu",
+     "tfhe_omr_tpu/ops/pallas_ntt.py:498"),
+    ("blind_rotate1", "blind_rotate_l1", "tfhe_omr_tpu_torch/csrc/blind_rotate.cu",
+     "tfhe_omr_tpu/ops/pallas_fused.py:436"),
+    ("blind_rotate2", "blind_rotate_l2", "tfhe_omr_tpu_torch/csrc/blind_rotate.cu",
+     "tfhe_omr_tpu/ops/pallas_fused.py:1218"),
+    ("trace", "trace", "tfhe_omr_tpu_torch/csrc/trace.cu",
+     "tfhe_omr_tpu/ops/pallas_fused.py:1765"),
+]
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` back-to-back calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(name, kernel_fn, plain_fn, reps, shape):
+    """Kernel vs plain on the same inputs: bit-equality and both times."""
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel != plain, max |diff| {err}, "
+                             f"{int((got != want).sum())} entries")
+    ms = cuda_ms(kernel_fn, reps)
+    plain_ms = cuda_ms(plain_fn, 1)
+    say(f"[compare] {name} {shape}: bit-equal (max_abs_err {err}), "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def random_field(gen, field, shape):
+    return torch.randint(0, field.q, shape, generator=gen, device=gen.device,
+                         dtype=torch.int64)
+
+
+def phase_compare(ctx):
+    from tfhe_omr_tpu_torch.ops.bootstrap import init_accumulator
+    from tfhe_omr_tpu_torch.ops.fused import (
+        BlindRotateKey, TraceKey, blind_rotate, blind_rotate_plain, trace,
+        trace_plain,
+    )
+
+    p = ctx.params
+    dev = ctx.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    res = {}
+    for ntt, rows, jname in ((ctx.ntt1, 7 * BATCH, "ntt_q1"),
+                             (ctx.ntt2, 2 * BATCH, "ntt_q2")):
+        x = random_field(gen, ntt.field, (rows, ntt.n))
+        fwd = compare(f"{jname} fwd", lambda: ntt.fwd_last(x),
+                      lambda: ntt.fwd_last_plain(x), 20, [rows, ntt.n])
+        inv = compare(f"{jname} inv", lambda: ntt.inv_last(x),
+                      lambda: ntt.inv_last_plain(x), 20, [rows, ntt.n])
+        res[jname] = dict(fwd, inv_ms=inv["ms"], plain_inv_ms=inv["plain_ms"],
+                          max_abs_err=max(fwd["max_abs_err"], inv["max_abs_err"]))
+
+    levels = (
+        (1, ctx.f1, ctx.ntt1, ctx.gadget_br1, ctx.lut1_ext, p.clue_params.dimension,
+         7 * SUB, "blind_rotate_l1"),
+        (2, ctx.f2, ctx.ntt2, ctx.gadget_br2, ctx.lut2_ext,
+         p.intermediate_lwe.dimension, SUB, "blind_rotate_l2"),
+    )
+    for level, f, ntt, g, lut, n_lwe, m, jname in levels:
+        bsk = random_field(gen, f, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+        key = BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
+        b = torch.randint(0, 2 * ntt.n, (m,), generator=gen, device=dev)
+        amounts = torch.randint(0, 2 * ntt.n, (n_lwe, m), generator=gen, device=dev)
+        acc = init_accumulator(torch.as_tensor(lut, device=dev), b, ntt.n)
+        acc = acc.permute(2, 1, 0).contiguous()
+        res[jname] = compare(jname, lambda: blind_rotate(acc, amounts, key),
+                             lambda: blind_rotate_plain(acc, amounts, key), 3,
+                             [m, 2, ntt.n, n_lwe // 2])
+        del bsk, key
+    f = ctx.f2
+    tk = random_field(gen, f, (len(ctx.trace_autos), p.n2, ctx.gadget_trace.d, 2))
+    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, ctx.gadget_trace, ctx.trace_autos)
+    acc = random_field(gen, f, (SUB, 2, p.n2))
+    res["trace"] = compare("trace", lambda: trace(acc, key),
+                           lambda: trace_plain(acc, key), 5, [SUB, 2, p.n2])
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    # the port itself: absent when this script stands alone, which fails here
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "examples"))
+    from omd_torch import run_omd
+    from tfhe_omr_tpu_torch.core.context import OmrContext
+    from tfhe_omr_tpu_torch.core.params import OmrParameters
+    from tfhe_omr_tpu_torch.core.sender import ClueBatch
+    from tfhe_omr_tpu_torch.utils import build
+
+    gpu = gpu_line()
+    say(gpu)
+    say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    build.library()
+    say(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {build.build_seconds:.2f} s)")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            say(f"[build] {line.strip()}")
+
+    params = OmrParameters.default()
+    ctx = OmrContext(params, "cuda")
+    results = phase_compare(ctx)
+    torch.cuda.empty_cache()
+
+    build.reset_launches()
+    run = run_omd(params, batch=BATCH, pertinent=PERTINENT, seed=SEED,
+                  device="cuda")
+    launches = dict(build.LAUNCHES)
+    say(f"[omd] keygen {run.keygen_s:.3f} s, detection key on the card "
+        f"{run.detector.detect_key_size()} bytes")
+    say(f"[omd] clues {run.clues_s:.3f} s, detect (first call) {run.detect_s:.3f} s, "
+        f"decrypt {run.decrypt_s:.3f} s")
+    say(f"[omd] passed at B={BATCH}: [1,0,...,0] for {PERTINENT} pertinent, "
+        f"zeros for {BATCH - PERTINENT}; launches {launches}")
+    missing = [c for c, *_ in KERNELS if launches.get(c, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    res = run.result
+    if res.shape != (BATCH, 2, params.n2) or not bool(
+            ((res >= 0) & (res < params.q2)).all()):
+        raise AssertionError(f"detect output malformed: {tuple(res.shape)}")
+    sub = ClueBatch(run.clues.a[:SUB], run.clues.b7[:SUB])
+    plain = run.detector.detect(sub, plain=True)
+    if not torch.equal(plain, res[:SUB]):
+        raise AssertionError("detect through the kernels != plain detect "
+                             f"on the first {SUB} messages")
+    say(f"[omd] first {SUB} outputs bit-equal to the plain path's detect")
+
+    runs = [run.detector.detect_with_time_info(run.clues)[1] for _ in range(3)]
+    med = sorted(runs, key=lambda r: r.detect_time)[1]
+    say(f"[detect] B={BATCH} warm median of 3: {BATCH / med.detect_time:.3f} msg/s, "
+        f"{1e3 * med.detect_time / BATCH:.5f} ms/msg; stage1 "
+        f"{1e3 * med.first_level_bootstrapping_time:.3f} ms, stage2 "
+        f"{1e3 * med.second_level_bootstrapping_time:.3f} ms, stage3 "
+        f"{1e3 * med.trace_time:.3f} ms (all 3: "
+        f"{[round(r.detect_time, 4) for r in runs]} s) on {gpu}")
+    say(f"[detect] spread of detect_time over 3 runs: "
+        f"{statistics.pstdev([r.detect_time for r in runs]):.5f} s")
+
+    kernels = []
+    for counter, jname, source, replaces in KERNELS:
+        r = results[jname]
+        kernels.append({
+            "name": jname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[counter],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            **({"inv_ms": r["inv_ms"], "plain_inv_ms": r["plain_inv_ms"]}
+               if "inv_ms" in r else {}),
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,141 @@
+"""Each CUDA kernel of the port against its plain torch version, on a card.
+
+Marked ``cuda``; each test skips (inside the ``cuda`` fixture) where no card
+is present. Imports no jax, so on a machine with a card and no jax run it
+without this suite's conftest:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Every comparison is exact. Inputs come from a seeded torch.Generator.
+"""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_omr_tpu_torch.core.context import OmrContext
+from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
+from tfhe_omr_tpu_torch.core.params import LweParams, OmrParameters
+from tfhe_omr_tpu_torch.core.sender import ClueBatch
+from tfhe_omr_tpu_torch.ops.bootstrap import init_accumulator
+from tfhe_omr_tpu_torch.ops.fused import (
+    BlindRotateKey,
+    TraceKey,
+    blind_rotate,
+    blind_rotate_plain,
+    trace,
+    trace_plain,
+)
+from tfhe_omr_tpu_torch.utils import build
+
+pytestmark = pytest.mark.cuda
+
+PRESETS = ["default", "tiny"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ctx(preset, device, **overrides):
+    params = getattr(OmrParameters, preset)()
+    if overrides:
+        params = replace(params, **overrides)
+    return OmrContext(params, device)
+
+
+def _uniform(gen, q, shape):
+    return torch.randint(0, q, shape, generator=gen, device=gen.device)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_ntt_kernel_matches_plain(cuda, preset, level):
+    ctx = _ctx(preset, cuda)
+    ntt = ctx.ntt1 if level == 1 else ctx.ntt2
+    gen = torch.Generator(device=cuda).manual_seed(level)
+    x = _uniform(gen, ntt.field.q, (37, 2, ntt.n))
+    before = build.LAUNCHES[ntt.name]
+    fwd = ntt.fwd_last(x)
+    assert torch.equal(fwd, ntt.fwd_last_plain(x))
+    assert torch.equal(ntt.inv_last(x), ntt.inv_last_plain(x))
+    assert torch.equal(ntt.inv_last(fwd), x)
+    assert build.LAUNCHES[ntt.name] == before + 3
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_kernel_matches_plain(cuda, preset, level):
+    ctx = _ctx(preset, cuda)
+    f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
+        ctx.f2, ctx.ntt2, ctx.gadget_br2)
+    lut = ctx.lut1_ext if level == 1 else ctx.lut2_ext
+    gen = torch.Generator(device=cuda).manual_seed(10 + level)
+    n_lwe, m = 12, 9
+    bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+    key = BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
+    b = _uniform(gen, 2 * ntt.n, (m,))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
+    amounts[:, 0] = 0
+    amounts[:, 1] = 2 * ntt.n - 1
+    acc = init_accumulator(torch.as_tensor(lut, device=cuda), b, ntt.n)
+    acc = acc.permute(2, 1, 0).contiguous()
+    acc[:, 0] = _uniform(gen, f.q, (m, ntt.n))
+    assert torch.equal(blind_rotate(acc, amounts, key),
+                       blind_rotate_plain(acc, amounts, key))
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_trace_kernel_matches_plain(cuda, preset):
+    ctx = _ctx(preset, cuda)
+    f = ctx.f2
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tk = _uniform(gen, f.q, (len(ctx.trace_autos), ctx.params.n2,
+                             ctx.gadget_trace.d, 2))
+    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, ctx.gadget_trace, ctx.trace_autos)
+    acc = _uniform(gen, f.q, (5, 2, ctx.params.n2))
+    assert torch.equal(trace(acc, key), trace_plain(acc, key))
+
+
+def test_detect_kernels_match_plain_and_pass_omd(cuda):
+    """Keygen on the card, detect through every kernel, plain detect on the
+    card, decrypt: equal outputs and the omd oracle."""
+    params = OmrParameters.tiny()
+    ctx = OmrContext(params, cuda)
+    skp = SecretKeyPack(params, rng=7, ctx=ctx)
+    skp2 = SecretKeyPack(params, rng=8, ctx=ctx)
+    sender, sender2 = skp.generate_sender(), skp2.generate_sender()
+    detector = skp.generate_detector()
+    rng = np.random.default_rng(9)
+    clues = ClueBatch.concat([sender.gen_clues(3, rng), sender2.gen_clues(5, rng)])
+    build.reset_launches()
+    out = detector.detect(clues)
+    assert all(build.LAUNCHES[k] > 0 for k in
+               ("blind_rotate1", "blind_rotate2", "trace", "ntt2"))
+    assert torch.equal(out, detector.detect(clues, plain=True))
+    q, t = params.q2, params.output_plain_modulus
+    dec = skp.decrypt_rlwe2_ntt(out)
+    decoded = np.mod((dec * (2 * t) + q) // (2 * q), t)
+    assert (decoded[:3, 0] == 1).all() and not decoded[:3, 1:].any()
+    assert not decoded[3:].any()
+
+
+def test_default_ring_detect_kernels_match_plain(cuda):
+    """The whole kernel path at the default rings with reduced LWE
+    dimensions (16 L1 and 8 L2 steps)."""
+    params = replace(
+        OmrParameters.default(),
+        clue_params=LweParams(32, 8, 2048, "binary", 0.8293),
+        first_level_ks=replace(OmrParameters.default().first_level_ks, out_dimension=16),
+        intermediate_lwe=LweParams(16, 32, 4096, "binary", 10.3260),
+    )
+    ctx = OmrContext(params, cuda)
+    skp = SecretKeyPack(params, rng=1, ctx=ctx)
+    detector = skp.generate_detector()
+    clues = skp.generate_sender().gen_clues(6, np.random.default_rng(2))
+    assert torch.equal(detector.detect(clues), detector.detect(clues, plain=True))

@@ -1,0 +1,150 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources under ``tfhe_omr_tpu_torch/csrc/`` compile with ``nvcc`` into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), loaded with ctypes. The library lands in ``build/kernels/``
+beside the package, named by a hash of the sources, so a changed source
+rebuilds and an unchanged one is reused by later processes. The build
+happens at the first launch, never at import.
+
+Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
+launches its kernel and nowhere else, so a run can show that the main path
+went through the kernels.
+
+Nothing here falls back: a failed build raises with nvcc's output, a
+launch error raises with CUDA's error string, and a tensor on a device
+other than the CPU or a CUDA card is refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+]
+
+#: launches per kernel name since the last :func:`reset_launches`
+LAUNCHES: Counter = Counter()
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+# (arguments of each C entry point, in order; see csrc/*.cu)
+_NTT_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I64, _I64, _I32, _P]
+_BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64,
+            _I32, _I32, _I32, _I32, _I32, _I64, _P]
+_TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P,
+               _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64,
+               _I32, _I32, _P]
+
+_library = None
+#: seconds the last build took (0.0 when a cached library was loaded)
+build_seconds = 0.0
+#: nvcc's report (registers, shared memory, spills) of the last build
+build_log = ""
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """"cpu" or "cuda" for a tensor; anything else is refused."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel and no plain path for device {t.device}")
+    return kind
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on first use."""
+    global _library, build_seconds, build_log
+    if _library is not None:
+        return _library
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so_path = BUILD_DIR / f"libomr_kernels_{digest.hexdigest()[:16]}.so"
+    if not so_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+            )
+        os.replace(tmp, so_path)
+        so_path.with_suffix(".log").write_text(build_log)
+    elif so_path.with_suffix(".log").exists():
+        build_log = so_path.with_suffix(".log").read_text()
+    lib = ctypes.CDLL(str(so_path))
+    for name, args in (
+        ("omr_ntt", _NTT_ARGS),
+        ("omr_blind_rotate", _BR_ARGS),
+        ("omr_trace", _TRACE_ARGS),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.omr_error_string.argtypes = [ctypes.c_int]
+    lib.omr_error_string.restype = ctypes.c_char_p
+    _library = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = lib.omr_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """Every tensor a kernel reads must be a contiguous int64 CUDA tensor
+    on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{what}: tensors on {t.device}, expected {dev} (cuda)")
+        if t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"{what}: needs contiguous int64, got {t.dtype}")

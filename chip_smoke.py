@@ -15,8 +15,18 @@ Phases (each prints its result; any failure exits non-zero):
      clues, detect through the kernels, decrypt, [1,0,...,0] / zeros; every
      kernel's launch count must have grown, and the first 32 outputs must
      equal the plain path's detect on the card;
-  6. warm detect throughput at B = 1024 (median of 3) and its stage split.
-The line before the last is a JSON record of the kernels; the last line is
+  6. warm detect throughput at B = 1024 (median of 3) and its stage split;
+  7. the whole OMR pipeline of examples/omr_torch.py at the reference
+     parameters through the kernels: D = 8192 messages (50 pertinent),
+     B = 1024, clues on the card, both digest encoders, the recipient's
+     decode. The true indices must be a subset of the decoded ones, every
+     decoded payload byte-exact and every extra a confirmed protocol false
+     positive; every kernel must have launched, the q2 NTT (K4) in both
+     encoders and in the decode; both digests of the first 2048 messages
+     must equal the plain path's (plain=True), and the Retriever's decrypt
+     the plain inverse NTT's.
+The line before the last is a JSON record of the kernels (``launches``:
+phases 4+5 and 7 together, ``launches_by_path`` each); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -29,12 +39,19 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 20261016
 BATCH = 1024
 PERTINENT = 8
 SUB = 32  # messages in the kernel-vs-plain comparisons of the long chains
+# phase 7: D = 8192 has the digest layout of D = 65536 at these parameters
+# (2 index digits per bucket, 5 segments and 5 index cts, 55 combinations
+# in 28 payload cts); only the board is shorter
+OMR_D = 8192
+OMR_PERTINENT = 50
+ENCODE_CHUNK = 2048  # the encoders' default chunk
 
 # (counter name, JSON name, source, the TPU kernel it replaces)
 KERNELS = [
@@ -144,6 +161,72 @@ def phase_compare(ctx):
     return res
 
 
+def phase_omr(params, gpu):
+    """Phase 7; returns the kernel launches of the pipeline's run."""
+    from omr_torch import make_keys, run_board
+    from tfhe_omr_tpu_torch.utils import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    keys = make_keys(params, SEED + 10, "cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    run = run_board(keys, OMR_D, OMR_PERTINENT, np.random.default_rng(SEED + 12),
+                    batch=BATCH)
+    launches = dict(build.LAUNCHES)
+    rec = run.rec
+    say(f"[omr] D={OMR_D}, {OMR_PERTINENT} pertinent, B={BATCH}: keygen "
+        f"{keygen_s:.3f} s, clues {rec.gen_clues_time:.3f} s, detect "
+        f"{rec.detect_time:.3f} s ({OMR_D / rec.detect_time:.3f} msg/s), index "
+        f"encode {rec.encode_indices_time:.3f} s ({len(run.index_cts)} cts), "
+        f"payload encode {rec.encode_payloads_time:.3f} s "
+        f"({run.payload_cts.shape[0]} cts), decode {rec.decode_time:.3f} s "
+        f"on {gpu}")
+    say(f"[omr] launches by stage: {run.launches}")
+    if not run.ok:
+        raise AssertionError(
+            f"OMR verification failed: subset {run.subset_ok}, byte-exact "
+            f"{run.payload_ok}, extras {run.fp_events}")
+    say(f"[omr] true indices subset of decoded ({len(run.indices)} decoded, "
+        f"{len(run.extras)} confirmed protocol FPs), all payloads byte-exact")
+    missing = [c for c, *_ in KERNELS if launches.get(c, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the OMR path: {missing}")
+    for stage in ("encode_indices", "encode_payloads", "decode"):
+        if run.launches[stage].get("ntt2", 0) <= 0:
+            raise AssertionError(f"the q2 NTT kernel did not launch in {stage}")
+
+    q2 = params.q2
+    digests = [*run.index_cts, run.payload_cts]
+    if any(not bool(((d >= 0) & (d < q2)).all()) for d in digests):
+        raise AssertionError("a digest holds values outside [0, q2)")
+    rp = run.retriever.params
+    det = keys.detector
+    pv0, pay0 = run.pertinency[:ENCODE_CHUNK], run.payloads[:ENCODE_CHUNK]
+
+    def first_chunk_digests(plain: bool):
+        return (det.encode_pertinent_indices(rp, pv0, np.random.default_rng(SEED),
+                                             plain=plain),
+                det.encode_pertinent_payloads(rp, pv0, pay0, run.digest_seed,
+                                              plain=plain))
+
+    k_idx, k_pay = first_chunk_digests(False)
+    p_idx, p_pay = first_chunk_digests(True)
+    if not (torch.equal(k_idx, p_idx) and torch.equal(k_pay, p_pay)):
+        raise AssertionError("digests of the first chunk through K4 != plain")
+    say(f"[omr] index and payload digests of the first {ENCODE_CHUNK} messages "
+        "bit-equal to plain=True")
+    for name, ct in (("index", run.index_cts[0]), ("payload", run.payload_cts)):
+        got = run.retriever.decrypt(ct)
+        want = run.retriever.decrypt(ct, plain=True)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"Retriever decrypt of the {name} digest "
+                                 "through K4 != inv_last_plain")
+    say("[omr] Retriever decrypt (index and payload digests) bit-equal to "
+        "inv_last_plain")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -211,13 +294,20 @@ def main() -> int:
         f"{[round(r.detect_time, 4) for r in runs]} s) on {gpu}")
     say(f"[detect] spread of detect_time over 3 runs: "
         f"{statistics.pstdev([r.detect_time for r in runs]):.5f} s")
+    del run, runs, plain, res
+    torch.cuda.empty_cache()
+
+    omr_launches = phase_omr(params, gpu)
 
     kernels = []
     for counter, jname, source, replaces in KERNELS:
         r = results[jname]
         kernels.append({
             "name": jname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[counter],
+            "replaces": replaces,
+            "launches": launches[counter] + omr_launches[counter],
+            "launches_by_path": {"omd": launches[counter],
+                                 "omr": omr_launches[counter]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             **({"inv_ms": r["inv_ms"], "plain_inv_ms": r["plain_inv_ms"]}

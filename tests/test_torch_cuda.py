@@ -17,7 +17,8 @@ import torch
 
 from tfhe_omr_tpu_torch.core.context import OmrContext
 from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
-from tfhe_omr_tpu_torch.core.params import LweParams, OmrParameters
+from tfhe_omr_tpu_torch.core.params import LweParams, OmrParameters, RetrievalParams
+from tfhe_omr_tpu_torch.core.payload import random_payloads
 from tfhe_omr_tpu_torch.core.sender import ClueBatch
 from tfhe_omr_tpu_torch.ops.bootstrap import init_accumulator
 from tfhe_omr_tpu_torch.ops.fused import (
@@ -139,3 +140,49 @@ def test_default_ring_detect_kernels_match_plain(cuda):
     detector = skp.generate_detector()
     clues = skp.generate_sender().gen_clues(6, np.random.default_rng(2))
     assert torch.equal(detector.detect(clues), detector.detect(clues, plain=True))
+
+
+@pytest.mark.parametrize("preset,total,chunk", [("tiny", 40, 16),
+                                                ("default", 300, 128)])
+def test_encoders_kernel_match_plain(cuda, preset, total, chunk):
+    """Both digest encoders through the q2 NTT kernel equal plain=True on a
+    random pertinency stack on the card (a ragged tail included)."""
+    params = getattr(OmrParameters, preset)()
+    ctx = OmrContext(params, cuda)
+    detector = SecretKeyPack(params, rng=3, ctx=ctx).generate_detector()
+    rp = RetrievalParams.for_params(params, total, min(total, 50))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    pert = _uniform(gen, params.q2, (total, 2, params.n2))
+    payloads = random_payloads(np.random.default_rng(5), total, rp.payload_length)
+    before = build.LAUNCHES["ntt2"]
+    idx = detector.encode_pertinent_indices(rp, pert, np.random.default_rng(6),
+                                            chunk=chunk)
+    pay = detector.encode_pertinent_payloads(rp, pert, payloads, 7, chunk=chunk)
+    n_chunks = -(-total // chunk)
+    assert build.LAUNCHES["ntt2"] == before + n_chunks * (1 + rp.cmb_cipher_count)
+    assert torch.equal(idx, detector.encode_pertinent_indices(
+        rp, pert, np.random.default_rng(6), chunk=chunk, plain=True))
+    assert torch.equal(pay, detector.encode_pertinent_payloads(
+        rp, pert, payloads, 7, chunk=chunk, plain=True))
+
+
+def test_retriever_decrypt_kernel_matches_plain(cuda):
+    params = OmrParameters.default()
+    skp = SecretKeyPack(params, rng=8, ctx=OmrContext(params, cuda))
+    retriever = skp.generate_retriever(65536, 50)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for shape in ((2, params.n2), (retriever.params.cmb_cipher_count, 2, params.n2)):
+        ct = _uniform(gen, params.q2, shape)
+        before = build.LAUNCHES["ntt2"]
+        got = retriever.decrypt(ct)
+        assert build.LAUNCHES["ntt2"] == before + 1
+        assert np.array_equal(got, retriever.decrypt(ct, plain=True))
+
+
+def test_device_clues_decrypt_to_zero_on_card(cuda):
+    params = OmrParameters.default()
+    ctx = OmrContext(params, cuda)
+    skp = SecretKeyPack(params, rng=10, ctx=ctx)
+    clues = skp.generate_sender().gen_clues_device(64, seed=11)
+    for i in range(64):
+        assert not skp.decrypt_compact_clue(clues.a[i], clues.b7[i]).any(), i

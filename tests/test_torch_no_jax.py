@@ -1,7 +1,7 @@
 """The port imports torch and numpy, never jax.
 
 Runs in a subprocess because this suite's conftest imports jax. Imports
-the package, every submodule, the omd example and chip_smoke.py.
+the package, every submodule, the omd and omr examples and chip_smoke.py.
 """
 
 import os
@@ -19,11 +19,15 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, "examples")
 import omd_torch
+import omr_torch
+import omr_time_analyze_torch
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tfhe_omr_tpu"))
 assert not bad, bad
-assert len(names) >= 15, names
+for name in ("core.matrix", "core.retriever", "native"):
+    assert "tfhe_omr_tpu_torch." + name in names, names
+assert len(names) >= 21, names
 print("imported", len(names))
 """
 

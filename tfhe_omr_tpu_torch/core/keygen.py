@@ -252,12 +252,39 @@ class SecretKeyPack:
     def generate_sender(self):
         from tfhe_omr_tpu_torch.core.sender import Sender
 
-        return Sender(self.generate_clue_key(), self.params)
+        return Sender(self.generate_clue_key(), self.params, self.device)
 
     def generate_detector(self):
         from tfhe_omr_tpu_torch.core.detector import Detector
 
         return Detector(self.generate_detection_key(), self.ctx)
+
+    def generate_retriever(self, all_payloads_count: int, pertinent_count: int):
+        """The recipient's decoder for a board of ``all_payloads_count``
+        messages, ``pertinent_count`` of them its own; decrypts on the
+        pack's device."""
+        from tfhe_omr_tpu_torch.core.params import RetrievalParams
+        from tfhe_omr_tpu_torch.core.retriever import Retriever
+
+        rp = RetrievalParams.for_params(
+            self.params, all_payloads_count, pertinent_count
+        )
+        return Retriever(rp, self.ctx, self.z2_ntt)
+
+    def size_bytes(self) -> int:
+        """Secret material byte count (counterpart of the ``Size`` impl,
+        reference ``key_gen/secret.rs:279-289``: clue + z1 + s2 + z2)."""
+        p = self.params
+        return (
+            p.clue_params.dimension * 2
+            + p.n1 * 4
+            + p.intermediate_lwe.dimension * 2
+            + p.n2 * 8
+        )
+
+    def z2_size(self) -> int:
+        """z2 key size in bytes (``secret.rs`` ``z2_size``)."""
+        return self.params.n2 * 8
 
     # ---------------------------------------------------------- decryption
     def decrypt_clue(self, a_vec: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -9,7 +9,17 @@ Phases (each prints its result; any failure exits non-zero):
   3. hold each kernel bit-equal to its plain torch version on the card at
      the main path's shapes (NTT q1 at 7*1024 rows and q2 at 2*1024 rows;
      both blind rotations with all 256 / 335 steps on a 32-message
-     sub-batch; the trace on 32 messages), timing both;
+     sub-batch, and at ragged batches of 1 and 5 samples on the first 4
+     steps; the trace on 32 messages), timing both; then time the blind
+     rotations and the trace alone at the main path's batch (7*1024, 1024
+     and 1024 samples) and compute each kernel's bound there: the larger
+     of its bytes (every input read once, every output written once) over
+     3.35 TB/s and the int32 multiplies of its modular products over
+     1.675e13 multiplies a second (half the card's 67 TFLOP/s float32
+     lanes). A product with a twiddle or the 1/N scale (Shoup) is 3
+     multiplies in a 27-bit field and 10 in a 50-bit one; a product that is
+     summed with others before one reduction (against a key, against the
+     monomial table) is 1 and 4;
   4+5. the omd oracle at the reference parameters, B = 1024 (8 pertinent
      messages, 1016 from a second key pack): key generation on the card,
      clues, detect through the kernels, decrypt, [1,0,...,0] / zeros; every
@@ -26,7 +36,9 @@ Phases (each prints its result; any failure exits non-zero):
      must equal the plain path's (plain=True), and the Retriever's decrypt
      the plain inverse NTT's.
 The line before the last is a JSON record of the kernels (``launches``:
-phases 4+5 and 7 together, ``launches_by_path`` each); the last line is
+phases 4+5 and 7 together, ``launches_by_path`` each, ``launches_per_detect``
+one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
+``ms_main_path`` and ``bound_ms`` at the main path's); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -46,6 +58,10 @@ SEED = 20261016
 BATCH = 1024
 PERTINENT = 8
 SUB = 32  # messages in the kernel-vs-plain comparisons of the long chains
+RAGGED = (1, 5)  # batches that fill no whole block, on RAGGED_STEPS steps
+RAGGED_STEPS = 4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_MULS_PER_S = 67e12 / 4  # int32 multiply-adds: half the float32 lanes
 # phase 7: D = 8192 has the digest layout of D = 65536 at these parameters
 # (2 index digits per bucket, 5 segments and 5 index cts, 55 combinations
 # in 28 payload cts); only the board is shorter
@@ -108,6 +124,40 @@ def compare(name, kernel_fn, plain_fn, reps, shape):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, shoup_products: int, summed_products: int, field) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    the modular products' int32 multiplies over the integer rate. A Shoup
+    product (a twiddle, the 1/N scale) is 3 multiplies in 32-bit words and
+    10 in 64-bit ones; a product summed in double width with others before
+    one reduction is 1 and 4."""
+    per_shoup, per_summed = (3, 1) if field.bits <= 31 else (10, 4)
+    muls = shoup_products * per_shoup + summed_products * per_summed
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * muls / INT32_MULS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_unit": "int32 multiplies", "bound_bytes": n_bytes,
+            "bound_products": shoup_products + summed_products,
+            "bound_multiplies": muls, "library_ms": None}
+
+
+def ntt_products(n: int) -> int:
+    """One transform: N/2 log N butterflies (the 1/N scale of the inverse
+    adds N/2, counted with the blind rotation's own inverses below)."""
+    return n // 2 * (n.bit_length() - 1)
+
+
+def blind_rotate_products(n: int, d: int) -> tuple[int, int]:
+    """Per sample and step, (Shoup, summed): 2d forward NTTs and two inverse
+    NTTs with the 1/N scale; 3 rows x d digits x 2 x 2 x N products against
+    the key and 6N against the monomial table."""
+    return 2 * d * ntt_products(n) + 2 * (ntt_products(n) + n), 12 * d * n + 6 * n
+
+
 def random_field(gen, field, shape):
     return torch.randint(0, field.q, shape, generator=gen, device=gen.device,
                          dtype=torch.int64)
@@ -133,31 +183,80 @@ def phase_compare(ctx):
         inv = compare(f"{jname} inv", lambda: ntt.inv_last(x),
                       lambda: ntt.inv_last_plain(x), 20, [rows, ntt.n])
         res[jname] = dict(fwd, inv_ms=inv["ms"], plain_inv_ms=inv["plain_ms"],
-                          max_abs_err=max(fwd["max_abs_err"], inv["max_abs_err"]))
+                          max_abs_err=max(fwd["max_abs_err"], inv["max_abs_err"]),
+                          ms_main_path=fwd["ms"], main_path_shape=[rows, ntt.n],
+                          **bound(2 * nbytes(x) + nbytes(ntt.fwd_tw, ntt.fwd_tw_sh,
+                                                         ntt.perm),
+                                  rows * ntt_products(ntt.n), 0, ntt.field))
 
     levels = (
         (1, ctx.f1, ctx.ntt1, ctx.gadget_br1, ctx.lut1_ext, p.clue_params.dimension,
-         7 * SUB, "blind_rotate_l1"),
+         7, "blind_rotate_l1"),
         (2, ctx.f2, ctx.ntt2, ctx.gadget_br2, ctx.lut2_ext,
-         p.intermediate_lwe.dimension, SUB, "blind_rotate_l2"),
+         p.intermediate_lwe.dimension, 1, "blind_rotate_l2"),
     )
-    for level, f, ntt, g, lut, n_lwe, m, jname in levels:
+    for level, f, ntt, g, lut, n_lwe, per_msg, jname in levels:
         bsk = random_field(gen, f, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
         key = BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
-        b = torch.randint(0, 2 * ntt.n, (m,), generator=gen, device=dev)
-        amounts = torch.randint(0, 2 * ntt.n, (n_lwe, m), generator=gen, device=dev)
+        m_main = per_msg * BATCH
+        b = torch.randint(0, 2 * ntt.n, (m_main,), generator=gen, device=dev)
+        amounts = torch.randint(0, 2 * ntt.n, (n_lwe, m_main), generator=gen,
+                                device=dev)
         acc = init_accumulator(torch.as_tensor(lut, device=dev), b, ntt.n)
         acc = acc.permute(2, 1, 0).contiguous()
-        res[jname] = compare(jname, lambda: blind_rotate(acc, amounts, key),
-                             lambda: blind_rotate_plain(acc, amounts, key), 3,
+        m = per_msg * SUB
+        sub_acc, sub_am = acc[:m].contiguous(), amounts[:, :m].contiguous()
+        res[jname] = compare(jname, lambda: blind_rotate(sub_acc, sub_am, key),
+                             lambda: blind_rotate_plain(sub_acc, sub_am, key), 3,
                              [m, 2, ntt.n, n_lwe // 2])
-        del bsk, key
+        short = BlindRotateKey(bsk[:3 * RAGGED_STEPS], f.shoup_t(bsk[:3 * RAGGED_STEPS]),
+                               ntt, g, f"blind_rotate{level}")
+        for mr in RAGGED:
+            r_acc = acc[:mr].contiguous()
+            r_am = amounts[:2 * RAGGED_STEPS, :mr].contiguous()
+            if not torch.equal(blind_rotate(r_acc, r_am, short),
+                               blind_rotate_plain(r_acc, r_am, short)):
+                raise AssertionError(f"{jname}: kernel != plain at {mr} samples")
+        say(f"[compare] {jname}: bit-equal at ragged batches {RAGGED} "
+            f"({RAGGED_STEPS} steps, {key.layout.s} samples a block)")
+        del bsk, short
+        blind_rotate(acc, amounts, key)
+        ms = cuda_ms(lambda: blind_rotate(acc, amounts, key), 3)
+        shoup, summed = (m_main * (n_lwe // 2) * c
+                         for c in blind_rotate_products(ntt.n, g.d))
+        res[jname].update(
+            ms_main_path=ms, main_path_shape=[m_main, 2, ntt.n, n_lwe // 2],
+            **bound(2 * nbytes(acc) + nbytes(amounts, key.keys[0], key.mono,
+                                             key.tw_fwd, key.tw_inv, key.orders),
+                    shoup, summed, f))
+        say(f"[main path] {jname} {res[jname]['main_path_shape']}: "
+            f"{ms:.3f} ms, bound {res[jname]['bound_ms']:.3f} ms "
+            f"({res[jname]['bound_by']}), key {key.nbytes()} bytes")
+        del key, acc, amounts
+        torch.cuda.empty_cache()
     f = ctx.f2
-    tk = random_field(gen, f, (len(ctx.trace_autos), p.n2, ctx.gadget_trace.d, 2))
-    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, ctx.gadget_trace, ctx.trace_autos)
-    acc = random_field(gen, f, (SUB, 2, p.n2))
-    res["trace"] = compare("trace", lambda: trace(acc, key),
-                           lambda: trace_plain(acc, key), 5, [SUB, 2, p.n2])
+    g = ctx.gadget_trace
+    rounds = len(ctx.trace_autos)
+    tk = random_field(gen, f, (rounds, p.n2, g.d, 2))
+    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, ctx.trace_autos)
+    acc = random_field(gen, f, (BATCH, 2, p.n2))
+    sub_acc = acc[:SUB].contiguous()
+    res["trace"] = compare("trace", lambda: trace(sub_acc, key),
+                           lambda: trace_plain(sub_acc, key), 5, [SUB, 2, p.n2])
+    trace(acc, key)
+    ms = cuda_ms(lambda: trace(acc, key), 5)
+    # per message and round: d forward NTTs and two inverse NTTs with the
+    # 1/N scale (Shoup products), d x 2 x N products against the key (summed)
+    shoup = BATCH * rounds * (g.d * ntt_products(p.n2) + 2 * (ntt_products(p.n2) + p.n2))
+    summed = BATCH * rounds * 2 * g.d * p.n2
+    res["trace"].update(
+        ms_main_path=ms, main_path_shape=[BATCH, 2, p.n2],
+        **bound(2 * nbytes(acc) + nbytes(*key.keys, key.gidx, key.gsign,
+                                         ctx.ntt2.fwd_tw, ctx.ntt2.fwd_tw_sh,
+                                         ctx.ntt2.inv_tw, ctx.ntt2.inv_tw_sh),
+                shoup, summed, f))
+    say(f"[main path] trace {[BATCH, 2, p.n2]}: {ms:.3f} ms, bound "
+        f"{res['trace']['bound_ms']:.3f} ms ({res['trace']['bound_by']})")
     return res
 
 
@@ -168,7 +267,7 @@ def phase_omr(params, gpu):
 
     build.reset_launches()
     t0 = time.perf_counter()
-    keys = make_keys(params, SEED + 10, "cuda")
+    keys = make_keys(params, SEED + 10)  # no device: the card
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     run = run_board(keys, OMR_D, OMR_PERTINENT, np.random.default_rng(SEED + 12),
@@ -252,17 +351,19 @@ def main() -> int:
     say(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s)")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "error" in line):
             say(f"[build] {line.strip()}")
 
     params = OmrParameters.default()
-    ctx = OmrContext(params, "cuda")
+    ctx = OmrContext(params)  # no device: the card
+    if ctx.device.type != "cuda":
+        raise AssertionError(f"the default device is {ctx.device}, not the card")
     results = phase_compare(ctx)
     torch.cuda.empty_cache()
 
     build.reset_launches()
-    run = run_omd(params, batch=BATCH, pertinent=PERTINENT, seed=SEED,
-                  device="cuda")
+    run = run_omd(params, batch=BATCH, pertinent=PERTINENT, seed=SEED)
     launches = dict(build.LAUNCHES)
     say(f"[omd] keygen {run.keygen_s:.3f} s, detection key on the card "
         f"{run.detector.detect_key_size()} bytes")
@@ -284,7 +385,10 @@ def main() -> int:
                              f"on the first {SUB} messages")
     say(f"[omd] first {SUB} outputs bit-equal to the plain path's detect")
 
+    build.reset_launches()
     runs = [run.detector.detect_with_time_info(run.clues)[1] for _ in range(3)]
+    per_detect = {c: build.LAUNCHES[c] // 3 for c, *_ in KERNELS}
+    say(f"[detect] kernel launches per detect at B={BATCH}: {per_detect}")
     med = sorted(runs, key=lambda r: r.detect_time)[1]
     say(f"[detect] B={BATCH} warm median of 3: {BATCH / med.detect_time:.3f} msg/s, "
         f"{1e3 * med.detect_time / BATCH:.5f} ms/msg; stage1 "
@@ -308,8 +412,13 @@ def main() -> int:
             "launches": launches[counter] + omr_launches[counter],
             "launches_by_path": {"omd": launches[counter],
                                  "omr": omr_launches[counter]},
+            "launches_per_detect": per_detect[counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
+            **{k: r[k] for k in ("ms_main_path", "main_path_shape", "bound_ms",
+                                 "bound_by", "bound_unit", "bound_bytes",
+                                 "bound_products", "bound_multiplies",
+                                 "library_ms")},
             **({"inv_ms": r["inv_ms"], "plain_inv_ms": r["plain_inv_ms"]}
                if "inv_ms" in r else {}),
         })

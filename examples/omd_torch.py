@@ -7,8 +7,11 @@ and check ``[1, 0, ..., 0]`` for each pertinent message and zeros for the
 others.
 
 Usage:
-    python examples/omd_torch.py --tiny                      # CPU, plain torch
-    python examples/omd_torch.py --device cuda --batch 1024  # the kernels
+    python examples/omd_torch.py --batch 1024         # on the card, the kernels
+    python examples/omd_torch.py --tiny --device cpu  # plain torch on the host
+
+The card is the default; with no card and no ``--device cpu`` the script
+exits non-zero and says so.
 
 On a CUDA device every step runs there: key generation, detection (the
 hand-written kernels) and decryption.
@@ -44,10 +47,11 @@ class OmdRun:
 
 
 def run_omd(params, batch: int = 4, pertinent: int = 2, seed: int = 3,
-            device: str = "cpu") -> OmdRun:
+            device=None) -> OmdRun:
     """Keygen, clues, detect and decrypt; raises AssertionError unless the
     decrypted pertinency vectors are [1, 0, ..., 0] for the first
-    ``pertinent`` messages and all zeros for the rest."""
+    ``pertinent`` messages and all zeros for the rest. Runs on the card
+    unless ``device="cpu"``; with no card it raises."""
     from tfhe_omr_tpu_torch.core.context import OmrContext
     from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
     from tfhe_omr_tpu_torch.core.sender import ClueBatch
@@ -89,20 +93,26 @@ def run_omd(params, batch: int = 4, pertinent: int = 2, seed: int = 3,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tiny", action="store_true", help="the small test preset")
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; fails when no card is present) or cpu")
     ap.add_argument("--batch", type=int, default=4, help="messages per detect")
     ap.add_argument("--seed", type=int, default=3)
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from tfhe_omr_tpu_torch.core.params import OmrParameters
+    from tfhe_omr_tpu_torch.utils.build import resolve_device
 
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:  # no card and no --device cpu
+        sys.exit(f"omd_torch: {err}")
     params = OmrParameters.tiny() if args.tiny else OmrParameters.default()
     run = run_omd(params, batch=args.batch, pertinent=min(2, args.batch),
-                  seed=args.seed, device=args.device)
+                  seed=args.seed, device=device)
     print(f"keygen {run.keygen_s:.3f}s clues {run.clues_s:.3f}s "
           f"detect {run.detect_s:.3f}s (first call) decrypt {run.decrypt_s:.3f}s "
-          f"on {args.device}")
+          f"on {device}")
     print(f"omd check passed: [1,0,...,0] for {run.pertinent} pertinent, "
           f"zeros for {args.batch - run.pertinent} others")
 

@@ -9,8 +9,11 @@ indices a subset of the decoded ones, byte-exact payloads, every extra a
 confirmed protocol false positive).
 
 Usage:
-    python examples/omr_time_analyze_torch.py --tiny --max-d 32          # CPU
-    python examples/omr_time_analyze_torch.py --device cuda --max-d 4096
+    python examples/omr_time_analyze_torch.py --max-d 4096                  # the card
+    python examples/omr_time_analyze_torch.py --tiny --max-d 32 --device cpu
+
+The card is the default; with no card and no ``--device cpu`` the script
+exits non-zero and says so.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ log = logging.getLogger("omr_time_analyze_torch")
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tiny", action="store_true", help="the small test preset")
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; fails when no card is present) or cpu")
     ap.add_argument("--max-d", type=int, default=256)
     ap.add_argument("--batch", type=int, default=1024,
                     help="messages per detect call")
@@ -44,10 +48,15 @@ def main():
     from omr_torch import make_keys, run_board
 
     from tfhe_omr_tpu_torch.core.params import OmrParameters
+    from tfhe_omr_tpu_torch.utils import build
     from tfhe_omr_tpu_torch.utils.timing import write_csv
 
     params = OmrParameters.tiny() if args.tiny else OmrParameters.default()
-    keys = make_keys(params, args.seed, args.device)
+    try:
+        device = build.resolve_device(args.device)
+    except RuntimeError as err:  # no card and no --device cpu
+        sys.exit(f"omr_time_analyze_torch: {err}")
+    keys = make_keys(params, args.seed, device)
     rng = np.random.default_rng(None if args.seed is None else args.seed + 2)
     records = []
     d = 1

@@ -15,8 +15,11 @@ protocol false positive (all its clues decrypt to 0 under the recipient's
 key). The exit code is 0 only then.
 
 Usage:
-    python examples/omr_torch.py --tiny -p 16                    # CPU, plain torch
-    python examples/omr_torch.py -p 65536 --batch 1024 --device cuda --json out.json
+    python examples/omr_torch.py -p 65536 --batch 1024 --json out.json  # on the card
+    python examples/omr_torch.py --tiny -p 16 --device cpu              # plain torch
+
+The card is the default; with no card and no ``--device cpu`` the script
+exits non-zero and says so.
 """
 
 from __future__ import annotations
@@ -96,10 +99,11 @@ class _Stages:
         return out
 
 
-def make_keys(params, seed=None, device="cpu") -> OmrKeys:
+def make_keys(params, seed=None, device=None) -> OmrKeys:
     """Two recipients' packs (numpy seeds ``seed`` and ``seed + 1``, fresh
     entropy when ``seed`` is None), their senders and the first one's
-    detector, all on ``device``."""
+    detector, all on ``device`` (the card unless ``device="cpu"``; with no
+    card it raises)."""
     from tfhe_omr_tpu_torch.core.context import OmrContext
     from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
 
@@ -233,7 +237,8 @@ def main():
     ap.add_argument("--batch", type=int, default=1024,
                     help="messages per detect call")
     ap.add_argument("--tiny", action="store_true", help="the small test preset")
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; fails when no card is present) or cpu")
     ap.add_argument("--seed", type=int, default=None,
                     help="numpy seed of keys, clues and digests (fresh if unset)")
     ap.add_argument("--host-clues", action="store_true",
@@ -255,7 +260,10 @@ def main():
     params = OmrParameters.tiny() if args.tiny else OmrParameters.default()
     all_count = args.payload_count
     pertinent_count = min(all_count, 8 if args.tiny else 50)
-    device = torch.device(args.device)
+    try:
+        device = build.resolve_device(args.device)
+    except RuntimeError as err:  # no card and no --device cpu
+        sys.exit(f"omr_torch: {err}")
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log.info("device %s (%s), payloads %d, pertinent %d", device, kind,
              all_count, pertinent_count)

@@ -41,8 +41,7 @@ def main() -> int:
     from tfhe_omr_tpu_torch.core.params import OmrParameters
     from tfhe_omr_tpu_torch.core.sender import ClueBatch
 
-    run = run_omd(OmrParameters.default(), batch=BATCH, pertinent=8, seed=SEED,
-                  device="cuda")
+    run = run_omd(OmrParameters.default(), batch=BATCH, pertinent=8, seed=SEED)
     det, clues = run.detector, run.clues
     print(f"detection key on the card {det.detect_key_size()} bytes")
     det.detect(clues)

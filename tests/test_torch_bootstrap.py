@@ -76,7 +76,7 @@ def packs():
         trace_k, trace_k_sh = skp._gen_trace_key(skp.rng)[:2]
     jkeys = dict(bsk1=bsk1, bsk1_sh=bsk1_sh, ksk_limbs=ksk_limbs, bsk2=bsk2,
                  bsk2_sh=bsk2_sh, trace_k=trace_k, trace_k_sh=trace_k_sh)
-    ctx = OmrContext(params)
+    ctx = OmrContext(params, "cpu")
     key = detection_key_from_numpy(
         np.asarray(bsk1), np.asarray(ksk_limbs), np.asarray(bsk2),
         np.asarray(trace_k), ctx)

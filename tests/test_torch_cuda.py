@@ -26,9 +26,11 @@ from tfhe_omr_tpu_torch.ops.fused import (
     TraceKey,
     blind_rotate,
     blind_rotate_plain,
+    br_layout,
     trace,
     trace_plain,
 )
+from tfhe_omr_tpu_torch.ops.ntt import Ntt
 from tfhe_omr_tpu_torch.utils import build
 
 pytestmark = pytest.mark.cuda
@@ -69,26 +71,74 @@ def test_ntt_kernel_matches_plain(cuda, preset, level):
     assert build.LAUNCHES[ntt.name] == before + 3
 
 
-@pytest.mark.parametrize("preset", PRESETS)
-@pytest.mark.parametrize("level", [1, 2])
-def test_blind_rotate_kernel_matches_plain(cuda, preset, level):
+def _blind_rotate_case(cuda, preset, level, m, n_lwe=12):
     ctx = _ctx(preset, cuda)
     f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
         ctx.f2, ctx.ntt2, ctx.gadget_br2)
     lut = ctx.lut1_ext if level == 1 else ctx.lut2_ext
     gen = torch.Generator(device=cuda).manual_seed(10 + level)
-    n_lwe, m = 12, 9
     bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
     key = BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
     b = _uniform(gen, 2 * ntt.n, (m,))
     amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
-    amounts[:, 0] = 0
-    amounts[:, 1] = 2 * ntt.n - 1
     acc = init_accumulator(torch.as_tensor(lut, device=cuda), b, ntt.n)
     acc = acc.permute(2, 1, 0).contiguous()
     acc[:, 0] = _uniform(gen, f.q, (m, ntt.n))
+    return key, acc, amounts
+
+
+# ragged batches: 1, S - 1, S + 1 for the first level's S = 4 samples per
+# block, a size that fills no whole number of blocks at either level, and 33
+@pytest.mark.parametrize("m", [1, 3, 5, 9, 33])
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_kernel_matches_plain(cuda, preset, level, m):
+    key, acc, amounts = _blind_rotate_case(cuda, preset, level, m)
+    amounts[:, 0] = 0
+    if m > 1:
+        amounts[:, 1] = 2 * key.ntt.n - 1
+    before = build.LAUNCHES[key.name]
+    got = blind_rotate(acc, amounts, key)
+    assert build.LAUNCHES[key.name] == before + 1
+    assert torch.equal(got, blind_rotate_plain(acc, amounts, key))
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_kernel_extreme_amounts(cuda, preset, level):
+    """Every rotation 0 or 2N - 1 (their sum wraps past 2N: the kernel
+    masks where the plain version takes ``% 2N``), extreme coefficients."""
+    key, acc, amounts = _blind_rotate_case(cuda, preset, level, 6)
+    two_n = 2 * key.ntt.n
+    amounts[:] = torch.where(amounts % 2 == 0, 0, two_n - 1)
+    amounts[:, 0] = two_n - 1
+    amounts[:, 1] = 0
+    acc[2] = key.ntt.field.q - 1
+    acc[3] = 0
     assert torch.equal(blind_rotate(acc, amounts, key),
                        blind_rotate_plain(acc, amounts, key))
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_layout_matches_library(cuda, preset, level):
+    """The key is laid out by the constants the library reports for its
+    instantiation, in its word, and round-trips to the reference layout."""
+    key, _acc, _amounts = _blind_rotate_case(cuda, preset, level, 1)
+    ntt, g, lay = key.ntt, key.gadget, key.layout
+    assert lay.word_bits == (32 if level == 1 else 64) and g.d % lay.dj == 0
+    assert key.keys[0].dtype == lay.dtype
+    assert key.keys[0].shape == (key.n_steps, g.d // lay.dj, 3, lay.dj, 2, 2, ntt.n)
+    assert (key.tw_fwd.numel(), key.tw_inv.numel()) == (2 * lay.tw_fwd, 2 * lay.tw_inv)
+    bsk, bsk_sh = key.reference()
+    assert bsk.dtype == torch.int64 and torch.equal(bsk_sh, ntt.field.shoup_t(bsk))
+
+
+def test_no_layout_for_other_parameters(cuda):
+    ctx = _ctx("tiny", cuda)
+    other = Ntt(ctx.f1, 128, cuda)
+    with pytest.raises(ValueError, match="no blind-rotation kernel"):
+        br_layout(other, ctx.gadget_br1)
 
 
 @pytest.mark.parametrize("preset", PRESETS)

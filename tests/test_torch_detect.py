@@ -70,7 +70,7 @@ def jax_run(request):
 def test_detect_matches_jax_on_jax_keys(jax_run):
     noise_free, skp, _sender, dkey, clues, want = jax_run
     params = OmrParameters.tiny(noise_free=noise_free)
-    ctx = OmrContext(params)
+    ctx = OmrContext(params, "cpu")
     key = detection_key_from_numpy(
         np.asarray(dkey.bsk1), np.asarray(dkey.ksk_limbs),
         np.asarray(dkey.bsk2), np.asarray(dkey.trace_k), ctx)
@@ -93,7 +93,7 @@ def test_same_seed_same_host_keys(jax_run):
     """Secrets, clue key, ring-key NTTs and KSK from one numpy seed."""
     noise_free, skp, sender, dkey, _clues, _out = jax_run
     params = OmrParameters.tiny(noise_free=noise_free)
-    port = SecretKeyPack(params, rng=SEED)
+    port = SecretKeyPack(params, rng=SEED, ctx=OmrContext(params, "cpu"))
     for name in ("clue_sk", "inter_sk", "z1", "z2"):
         assert np.array_equal(getattr(port, name), getattr(skp, name)), name
     assert np.array_equal(port.z1_ntt.numpy(), np.asarray(skp.z1_ntt).astype(np.int64))
@@ -112,8 +112,8 @@ def test_port_keygen_passes_omd(noise_free):
     """Port keygen (torch.Generator masks and noise) + clues + detect +
     decrypt: the omd oracle, and the plain path equals the wrappers'."""
     params = OmrParameters.tiny(noise_free=noise_free)
-    skp = SecretKeyPack(params, rng=SEED)
-    skp2 = SecretKeyPack(params, rng=SEED + 1)
+    skp = SecretKeyPack(params, rng=SEED, ctx=OmrContext(params, "cpu"))
+    skp2 = SecretKeyPack(params, rng=SEED + 1, ctx=OmrContext(params, "cpu"))
     sender, sender2 = skp.generate_sender(), skp2.generate_sender()
     detector = skp.generate_detector()
     rng = np.random.default_rng(SEED + 2)

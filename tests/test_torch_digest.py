@@ -32,6 +32,7 @@ from tfhe_omr_tpu.core.params import KeySwitchParams as JaxKs
 from tfhe_omr_tpu.core.params import LweParams as JaxLwe
 from tfhe_omr_tpu.core.params import OmrParameters as JaxParams
 from tfhe_omr_tpu.core.params import RetrievalParams as JaxRetrievalParams
+from tfhe_omr_tpu_torch.core.context import OmrContext
 from tfhe_omr_tpu_torch.core.detector import (
     index_poly_device,
     payload_plain_device,
@@ -77,7 +78,8 @@ PRESETS = {
 def detectors(request):
     """(preset, port detector, JAX detector) on the preset's rings."""
     port_params, jax_params = (f() for f in PRESETS[request.param])
-    port = SecretKeyPack(port_params, rng=5).generate_detector()
+    port = SecretKeyPack(
+        port_params, rng=5, ctx=OmrContext(port_params, "cpu")).generate_detector()
     jax_det = JaxDetector(JaxDetectionKey(*([None] * 7)),
                           JaxPack(jax_params, rng=5).ctx)
     return request.param, port, jax_det
@@ -86,7 +88,8 @@ def detectors(request):
 def test_golden_digests_reproduced():
     golden = np.load(GOLDEN_PATH)
     params = OmrParameters.tiny(noise_free=True)
-    detector = SecretKeyPack(params, rng=GOLDEN_SEED).generate_detector()
+    detector = SecretKeyPack(
+        params, rng=GOLDEN_SEED, ctx=OmrContext(params, "cpu")).generate_detector()
     rp = RetrievalParams.for_params(params, 4, 2)
     pert = golden["detect_tiny"]
     idx = detector.encode_pertinent_indices(

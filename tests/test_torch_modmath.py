@@ -85,7 +85,7 @@ def test_torch_int64_semantics():
 def test_gadget_digits_match_jax(preset, name):
     params = getattr(OmrParameters, preset)()
     jparams = getattr(JaxParams, preset)()
-    g = getattr(OmrContext(params), name)
+    g = getattr(OmrContext(params, "cpu"), name)
     jg = getattr(JaxContext(jparams), name)
     q = g.field.q
     assert g.exact == jg.exact and g.h == jg.h

@@ -28,7 +28,7 @@ def contexts():
     """One port and one JAX context per preset (the JAX NTT tables take
     seconds to build)."""
     return {
-        preset: (OmrContext(getattr(OmrParameters, preset)()),
+        preset: (OmrContext(getattr(OmrParameters, preset)(), "cpu"),
                  JaxContext(getattr(JaxParams, preset)()))
         for preset in ("default", "tiny")
     }
@@ -68,7 +68,7 @@ def test_ntt_matches_jax(contexts, preset, level):
 def test_wrappers_refuse_other_devices():
     """A wrapper runs plain torch only for a CPU tensor; other devices
     raise instead of falling back."""
-    ntt = OmrContext(OmrParameters.tiny()).ntt1
+    ntt = OmrContext(OmrParameters.tiny(), "cpu").ntt1
     x = torch.empty(3, ntt.n, dtype=torch.int64, device="meta")
     for fn in (ntt.fwd_last, ntt.inv_last):
         with pytest.raises(ValueError, match="no kernel"):
@@ -97,7 +97,7 @@ def test_orders_equal_pallas_orders(contexts):
 
 def test_monomial_minus_one():
     """NTT(X^a) - 1 by table lookup equals the transform of X^a - 1."""
-    ctx = OmrContext(OmrParameters.tiny())
+    ctx = OmrContext(OmrParameters.tiny(), "cpu")
     ntt = ctx.ntt1
     q, n = ntt.field.q, ntt.n
     amounts = torch.tensor([0, 1, 5, n, n + 3, 2 * n - 1])

@@ -86,7 +86,7 @@ def _port_pack(run, ctx):
 
 def test_decode_matches_jax_on_jax_digests(jax_omr):
     run = jax_omr
-    port = _port_pack(run, OmrContext(OmrParameters.tiny()))
+    port = _port_pack(run, OmrContext(OmrParameters.tiny(), "cpu"))
     retriever = port.generate_retriever(ALL, PERTINENT)
     indices, solved = retriever.decode_digest(
         run["index_cts"], run["payload_cts"], run["digest_seed"])
@@ -96,7 +96,7 @@ def test_decode_matches_jax_on_jax_digests(jax_omr):
 
 def test_pipeline_on_jax_keys_matches_jax(jax_omr):
     run = jax_omr
-    ctx = OmrContext(OmrParameters.tiny())
+    ctx = OmrContext(OmrParameters.tiny(), "cpu")
     dkey = run["dkey"]
     detector = Detector(detection_key_from_numpy(
         np.asarray(dkey.bsk1), np.asarray(dkey.ksk_limbs), np.asarray(dkey.bsk2),
@@ -124,8 +124,8 @@ def test_pipeline_on_jax_keys_matches_jax(jax_omr):
 @pytest.mark.parametrize("preset", ["tiny", "default"])
 def test_device_clues_decrypt_to_zero(preset):
     params = getattr(OmrParameters, preset)()
-    skp = SecretKeyPack(params, rng=SEED)
-    other = SecretKeyPack(params, rng=SEED + 1)
+    skp = SecretKeyPack(params, rng=SEED, ctx=OmrContext(params, "cpu"))
+    other = SecretKeyPack(params, rng=SEED + 1, ctx=OmrContext(params, "cpu"))
     sender = skp.generate_sender()
     clues = sender.gen_clues_device(20, seed=9)
     n = params.clue_params.dimension

@@ -24,6 +24,7 @@ from tfhe_omr_tpu.core.keygen import SecretKeyPack as JaxPack
 from tfhe_omr_tpu.core.matrix import solve_matrix_numpy as jax_solve_numpy
 from tfhe_omr_tpu.core.params import OmrParameters as JaxParams
 from tfhe_omr_tpu_torch import native
+from tfhe_omr_tpu_torch.core.context import OmrContext
 from tfhe_omr_tpu_torch.core.errors import InvertibleMatrixError
 from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack, secret_key_pack_from_numpy
 from tfhe_omr_tpu_torch.core.matrix import solve_matrix, solve_matrix_numpy
@@ -118,7 +119,8 @@ def test_decrypt_and_noise_info_match_jax(noise_free):
     params = OmrParameters.tiny(noise_free=noise_free)
     jskp = JaxPack(JaxParams.tiny(noise_free=noise_free), rng=4)
     port = secret_key_pack_from_numpy(params, jskp.clue_sk, jskp.inter_sk,
-                                      jskp.z1, jskp.z2)
+                                      jskp.z1, jskp.z2,
+                                      OmrContext(params, "cpu"))
     jret = jskp.generate_retriever(40, 8)
     ret = port.generate_retriever(40, 8)
     rp = ret.params
@@ -135,8 +137,8 @@ def _board(params, all_count, pertinent_count, seed, fp_row=None):
     """Packs, detector and host clues for a board: the recipient's clues on
     the pertinent rows (and on ``fp_row``, a clue collision), the second
     pack's elsewhere."""
-    skp = SecretKeyPack(params, rng=seed)
-    skp2 = SecretKeyPack(params, rng=seed + 1)
+    skp = SecretKeyPack(params, rng=seed, ctx=OmrContext(params, "cpu"))
+    skp2 = SecretKeyPack(params, rng=seed + 1, ctx=OmrContext(params, "cpu"))
     rng = np.random.default_rng(seed + 2)
     sender, sender2 = skp.generate_sender(), skp2.generate_sender()
     detector = skp.generate_detector()

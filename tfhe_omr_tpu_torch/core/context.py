@@ -11,21 +11,22 @@ from __future__ import annotations
 from functools import cached_property
 
 import numpy as np
-import torch
 
 from tfhe_omr_tpu_torch.core.lut import first_level_lut, second_level_lut
 from tfhe_omr_tpu_torch.core.params import OmrParameters
 from tfhe_omr_tpu_torch.ops.decompose import SignedGadget
 from tfhe_omr_tpu_torch.ops.modmath import PrimeField
 from tfhe_omr_tpu_torch.ops.ntt import Ntt
+from tfhe_omr_tpu_torch.utils.build import resolve_device
 
 
 class OmrContext:
     """Derived (non-secret) state for one parameter set on one device."""
 
-    def __init__(self, params: OmrParameters, device="cpu"):
+    def __init__(self, params: OmrParameters, device=None):
         self.params = params
-        self.device = torch.device(device)
+        #: the card unless the caller names another (``device="cpu"``)
+        self.device = resolve_device(device)
         self.f1 = PrimeField(params.q1)
         self.f2 = PrimeField(params.q2)
 

@@ -108,7 +108,9 @@ class SecretKeyPack:
     """All four secrets plus derivation of every public/evaluation key.
 
     ``ctx`` fixes the device: key generation runs there (the NTTs through
-    the card's kernels when it is a CUDA device).
+    the card's kernels when it is a CUDA device). With no ``ctx`` the pack
+    builds ``OmrContext(params)``, which takes the card and raises where
+    there is none.
     """
 
     def __init__(self, params: OmrParameters,

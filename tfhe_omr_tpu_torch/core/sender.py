@@ -22,6 +22,7 @@ import torch
 
 from tfhe_omr_tpu_torch.core.keygen import ClueKey
 from tfhe_omr_tpu_torch.core.params import OmrParameters
+from tfhe_omr_tpu_torch.utils.build import resolve_device
 
 
 class ClueBatch(NamedTuple):
@@ -45,10 +46,10 @@ class Sender:
     #: stream of whole chunks, so they do not depend on the count
     CHUNK = 8192
 
-    def __init__(self, clue_key: ClueKey, params: OmrParameters, device="cpu"):
+    def __init__(self, clue_key: ClueKey, params: OmrParameters, device=None):
         self.clue_key = clue_key
         self.params = params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         k = clue_key
         #: (n, n + clue_count) public-key columns a | b7, for the matmul
         self._mat = torch.as_tensor(

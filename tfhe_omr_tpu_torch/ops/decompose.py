@@ -10,8 +10,10 @@ convention so digits and gadget values are bit-equal to the JAX package:
 * **exact** (``d * log_B >= ceil(log q)``; key-switching and trace bases):
   unsigned base-B digits of x, ``h_j = B**j``, zero error.
 
-The CUDA kernels (``csrc/common.cuh``) compute the same digits from the
-parameters in :meth:`SignedGadget.kernel_params`.
+The CUDA kernels compute the same digits: ``csrc/common.cuh`` the exact
+ones of the trace, ``csrc/blind_rotate.cuh`` the approximate ones from one
+rounding and an offset (``H = sum_j (B/2) B**j``: the balanced digits of u
+are the plain base-B digits of ``u + H`` less ``B/2``).
 """
 
 from __future__ import annotations
@@ -46,11 +48,6 @@ class SignedGadget:
         eps_bits = field.eps.bit_length()
         self.corr_pre = max(0, qbits + eps_bits - 62)
         self.corr_post = qbits - self.corr_pre
-
-    def kernel_params(self) -> tuple[int, int, int, int, int]:
-        """(log_b, d, shift, corr_pre, corr_post) for the CUDA kernels;
-        ``shift == 0`` selects exact digits."""
-        return (self.log_b, self.d, self.shift, self.corr_pre, self.corr_post)
 
     # ---------------------------------------------------------------- tensor
     def decompose(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -6,7 +6,8 @@ the same Shoup companions, so every result is bit-equal to the JAX package.
 
 Torch int64 semantics the algorithms rely on (the same as XLA's): ``*``
 wraps modulo 2**64, ``>>`` is arithmetic on negative values and ``//``
-floors. Every value lives in int64; the port has no int32 storage mode.
+floors. Every value here lives in int64; the only int32 words of the port are
+the blind-rotation kernel's first-level key and tables (``ops/fused.py``).
 """
 
 from __future__ import annotations

@@ -135,18 +135,18 @@ def reference_radices(field: PrimeField, n: int):
 class Ntt:
     """Negacyclic NTT over Z_q[X]/(X^N + 1) in a reference slot order.
 
-    Tables live on ``device``. ``orders`` is the reference order;
+    Tables live on ``device`` (the card unless the caller names another). ``orders`` is the reference order;
     ``base_orders`` the order of the radix-2 butterflies; ``perm`` maps one
     to the other: ``ref[..., k] == base[..., perm[k]]``.
     """
 
-    def __init__(self, field: PrimeField, n: int, device="cpu",
+    def __init__(self, field: PrimeField, n: int, device=None,
                  name: str = "ntt"):
         assert n & (n - 1) == 0, "N must be a power of two"
         self.field = field
         self.n = n
         self.log_n = n.bit_length() - 1
-        self.device = torch.device(device)
+        self.device = build.resolve_device(device)
         self.name = name
         q = field.q
         psi = field.find_primitive_root_of_unity(2 * n)
@@ -181,7 +181,6 @@ class Ntt:
         self.inv_tw_sh = dev(field.shoup(inv_tw))
         self.n_inv_sh = int(field.shoup(self.n_inv))
         self.mono = dev(mono)
-        self.mono_sh = dev(field.shoup(mono))
 
         # base order: where the radix-2 butterflies leave psi**e (host)
         cpu_tw = (torch.as_tensor(fwd_tw), torch.as_tensor(field.shoup(fwd_tw)))

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
-The sources under ``tfhe_omr_tpu_torch/csrc/`` compile with ``nvcc`` into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), loaded with ctypes. The library lands in ``build/kernels/``
+The sources under ``tfhe_omr_tpu_torch/csrc/`` compile with ``nvcc`` (one
+process per source, all started together, then one link) into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), loaded with ctypes. The library lands in ``build/kernels/``
 beside the package, named by a hash of the sources, so a changed source
 rebuilds and an unchanged one is reused by later processes. The build
 happens at the first launch, never at import.
@@ -34,7 +35,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 
 #: launches per kernel name since the last :func:`reset_launches`
@@ -45,9 +46,9 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # (arguments of each C entry point, in order; see csrc/*.cu)
 _NTT_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I64, _I64, _I32, _P]
-_BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P,
-            _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64,
-            _I32, _I32, _I32, _I32, _I32, _I64, _P]
+_U64 = ctypes.c_uint64
+_BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U64,
+            _I32, _I64, _I32, _I32, _I32, _P]
 _TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P,
                _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64,
                _I32, _I32, _P]
@@ -69,6 +70,19 @@ def device_kind(t: torch.Tensor) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel and no plain path for device {t.device}")
     return kind
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. With no card and no explicit ``device="cpu"`` this raises; it
+    never falls back to the host."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is false); "
+            'pass device="cpu" (--device cpu) to run the plain torch path on '
+            "the host")
+    return dev
 
 
 def _sources() -> list[Path]:
@@ -95,15 +109,30 @@ def library() -> ctypes.CDLL:
     if not so_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objects = [tmp.with_suffix(f".{src.stem}.o")
+                   for src in sorted(CSRC_DIR.glob("*.cu"))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objects, sorted(CSRC_DIR.glob("*.cu")))]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objects]])
+        logs = [proc.communicate()[0] for proc in procs]
+        codes = [proc.returncode for proc in procs]
+        if not any(codes):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            codes.append(link.returncode)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        build_log = "".join(logs)
+        if any(codes):
+            failed = [" ".join(c) for c, rc in zip(cmds, codes) if rc]
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+                f"nvcc failed ({codes}):\n" + "\n".join(failed) + f"\n{build_log}"
             )
         os.replace(tmp, so_path)
         so_path.with_suffix(".log").write_text(build_log)
@@ -118,6 +147,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.omr_blind_rotate_config.argtypes = [_I32, _I64, _I32, _I32, _P]
+    lib.omr_blind_rotate_config.restype = ctypes.c_int
     lib.omr_error_string.argtypes = [ctypes.c_int]
     lib.omr_error_string.restype = ctypes.c_char_p
     _library = lib
@@ -139,12 +170,13 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def require_cuda(what: str, *tensors: torch.Tensor) -> None:
-    """Every tensor a kernel reads must be a contiguous int64 CUDA tensor
-    on one card."""
+def require_cuda(what: str, *tensors: torch.Tensor,
+                 dtypes=(torch.int64,)) -> None:
+    """Every tensor a kernel reads must be a contiguous CUDA tensor on one
+    card, int64 unless the kernel takes other words (``dtypes``)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{what}: tensors on {t.device}, expected {dev} (cuda)")
-        if t.dtype != torch.int64 or not t.is_contiguous():
-            raise ValueError(f"{what}: needs contiguous int64, got {t.dtype}")
+        if t.dtype not in dtypes or not t.is_contiguous():
+            raise ValueError(f"{what}: needs contiguous {dtypes}, got {t.dtype}")

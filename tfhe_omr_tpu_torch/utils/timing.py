@@ -15,6 +15,8 @@ from dataclasses import asdict, dataclass
 
 import torch
 
+from tfhe_omr_tpu_torch.utils.build import resolve_device
+
 
 @dataclass
 class TimingRecord:
@@ -54,8 +56,8 @@ def synchronize(device) -> None:
 class StageTimer:
     """Accumulating wall-clock stage timer that synchronises ``device``."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
         self.stages: dict[str, float] = {}
 
     def time(self, name: str, fn, *args, **kwargs):

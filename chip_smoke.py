@@ -7,10 +7,11 @@ Phases (each prints its result; any failure exits non-zero):
      the torch and CUDA versions;
   2. build the kernels from tfhe_omr_tpu_torch/csrc with nvcc;
   3. hold each kernel bit-equal to its plain torch version on the card at
-     the main path's shapes (NTT q1 at 7*1024 rows and q2 at 2*1024 rows;
-     both blind rotations with all 256 / 335 steps on a 32-message
-     sub-batch, and at ragged batches of 1 and 5 samples on the first 4
-     steps; the trace on 32 messages), timing both; then time the blind
+     the main path's shapes (NTT q1 at 7*1024 rows and q2 at 2*1024 rows,
+     and both at 1 and 37 rows; both blind rotations with all 256 / 335
+     steps on a 32-message sub-batch, and at ragged batches of 1 and 5
+     samples on the first 4 steps; the trace on 32 messages and on 1 and
+     5), timing both; then time the blind
      rotations and the trace alone at the main path's batch (7*1024, 1024
      and 1024 samples) and compute each kernel's bound there: the larger
      of its bytes (every input read once, every output written once) over
@@ -60,6 +61,7 @@ PERTINENT = 8
 SUB = 32  # messages in the kernel-vs-plain comparisons of the long chains
 RAGGED = (1, 5)  # batches that fill no whole block, on RAGGED_STEPS steps
 RAGGED_STEPS = 4
+NTT_RAGGED_ROWS = (1, 37)  # row counts that fill no whole group of a block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_MULS_PER_S = 67e12 / 4  # int32 multiply-adds: half the float32 lanes
 # phase 7: D = 8192 has the digest layout of D = 65536 at these parameters
@@ -182,6 +184,12 @@ def phase_compare(ctx):
                       lambda: ntt.fwd_last_plain(x), 20, [rows, ntt.n])
         inv = compare(f"{jname} inv", lambda: ntt.inv_last(x),
                       lambda: ntt.inv_last_plain(x), 20, [rows, ntt.n])
+        for r in NTT_RAGGED_ROWS:
+            xr = x[:r].contiguous()
+            if not (torch.equal(ntt.fwd_last(xr), ntt.fwd_last_plain(xr))
+                    and torch.equal(ntt.inv_last(xr), ntt.inv_last_plain(xr))):
+                raise AssertionError(f"{jname}: kernel != plain at {r} rows")
+        say(f"[compare] {jname}: forward and inverse bit-equal at {NTT_RAGGED_ROWS} rows")
         res[jname] = dict(fwd, inv_ms=inv["ms"], plain_inv_ms=inv["plain_ms"],
                           max_abs_err=max(fwd["max_abs_err"], inv["max_abs_err"]),
                           ms_main_path=fwd["ms"], main_path_shape=[rows, ntt.n],
@@ -243,6 +251,12 @@ def phase_compare(ctx):
     sub_acc = acc[:SUB].contiguous()
     res["trace"] = compare("trace", lambda: trace(sub_acc, key),
                            lambda: trace_plain(sub_acc, key), 5, [SUB, 2, p.n2])
+    for mr in RAGGED:
+        r_acc = acc[SUB:SUB + mr].contiguous()
+        if not torch.equal(trace(r_acc, key), trace_plain(r_acc, key)):
+            raise AssertionError(f"trace: kernel != plain at {mr} messages")
+    say(f"[compare] trace: bit-equal at ragged batches {RAGGED} "
+        f"({key.layout.s} messages a block)")
     trace(acc, key)
     ms = cuda_ms(lambda: trace(acc, key), 5)
     # per message and round: d forward NTTs and two inverse NTTs with the
@@ -251,9 +265,7 @@ def phase_compare(ctx):
     summed = BATCH * rounds * 2 * g.d * p.n2
     res["trace"].update(
         ms_main_path=ms, main_path_shape=[BATCH, 2, p.n2],
-        **bound(2 * nbytes(acc) + nbytes(*key.keys, key.gidx, key.gsign,
-                                         ctx.ntt2.fwd_tw, ctx.ntt2.fwd_tw_sh,
-                                         ctx.ntt2.inv_tw, ctx.ntt2.inv_tw_sh),
+        **bound(2 * nbytes(acc) + nbytes(*key.keys, key.ginv, key.tw_fwd, key.tw_inv),
                 shoup, summed, f))
     say(f"[main path] trace {[BATCH, 2, p.n2]}: {ms:.3f} ms, bound "
         f"{res['trace']['bound_ms']:.3f} ms ({res['trace']['bound_by']})")

@@ -27,6 +27,7 @@ from tfhe_omr_tpu_torch.ops.fused import (
     blind_rotate,
     blind_rotate_plain,
     br_layout,
+    tr_layout,
     trace,
     trace_plain,
 )
@@ -56,19 +57,36 @@ def _uniform(gen, q, shape):
     return torch.randint(0, q, shape, generator=gen, device=gen.device)
 
 
+# a row alone, one group of the first level's blocks half full, a count
+# that fills no whole number of groups, and more rows than blocks stay
+# resident (a block then walks over several)
+@pytest.mark.parametrize("rows", [1, 2, 37, 2048])
 @pytest.mark.parametrize("preset", PRESETS)
 @pytest.mark.parametrize("level", [1, 2])
-def test_ntt_kernel_matches_plain(cuda, preset, level):
+def test_ntt_kernel_matches_plain(cuda, preset, level, rows):
     ctx = _ctx(preset, cuda)
     ntt = ctx.ntt1 if level == 1 else ctx.ntt2
     gen = torch.Generator(device=cuda).manual_seed(level)
-    x = _uniform(gen, ntt.field.q, (37, 2, ntt.n))
+    x = _uniform(gen, ntt.field.q, (rows, ntt.n))
+    x[0, :3] = torch.tensor([0, ntt.field.q - 1, 1], device=cuda)
     before = build.LAUNCHES[ntt.name]
     fwd = ntt.fwd_last(x)
     assert torch.equal(fwd, ntt.fwd_last_plain(x))
     assert torch.equal(ntt.inv_last(x), ntt.inv_last_plain(x))
     assert torch.equal(ntt.inv_last(fwd), x)
     assert build.LAUNCHES[ntt.name] == before + 3
+
+
+def test_ntt_kernel_takes_any_leading_shape_and_alignment(cuda):
+    """(..., N) inputs, and a view that starts 8 bytes off a 16-byte line."""
+    ntt = _ctx("tiny", cuda).ntt2
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _uniform(gen, ntt.field.q, (5, 2, ntt.n))
+    assert torch.equal(ntt.fwd_last(x), ntt.fwd_last_plain(x))
+    flat = _uniform(gen, ntt.field.q, (3 * ntt.n + 1,))
+    off = flat[1:].view(3, ntt.n)
+    assert off.data_ptr() % 16 == 8
+    assert torch.equal(ntt.inv_last(off), ntt.inv_last_plain(off))
 
 
 def _blind_rotate_case(cuda, preset, level, m, n_lwe=12):
@@ -134,23 +152,63 @@ def test_blind_rotate_layout_matches_library(cuda, preset, level):
     assert bsk.dtype == torch.int64 and torch.equal(bsk_sh, ntt.field.shoup_t(bsk))
 
 
-def test_no_layout_for_other_parameters(cuda):
+@pytest.mark.parametrize("kernel", ["blind_rotate", "trace", "ntt"])
+def test_no_layout_for_other_parameters(cuda, kernel):
+    """A ring, field or gadget with no instantiation raises, naming the
+    parameters; nothing falls back to the plain version."""
     ctx = _ctx("tiny", cuda)
     other = Ntt(ctx.f1, 128, cuda)
-    with pytest.raises(ValueError, match="no blind-rotation kernel"):
-        br_layout(other, ctx.gadget_br1)
+    if kernel == "blind_rotate":
+        with pytest.raises(ValueError, match="no blind-rotation kernel"):
+            br_layout(other, ctx.gadget_br1)
+    elif kernel == "trace":
+        with pytest.raises(ValueError, match="no trace kernel"):
+            tr_layout(other, ctx.gadget_trace)
+        tk = torch.zeros((1, 128, ctx.gadget_trace.d, 2), dtype=torch.int64, device=cuda)
+        with pytest.raises(ValueError, match=r"no trace kernel.*\(7, "):
+            TraceKey(tk, tk, other, ctx.gadget_trace, ctx.trace_autos[:1])
+    else:
+        x = torch.zeros((2, 128), dtype=torch.int64, device=cuda)
+        with pytest.raises(ValueError, match=r"no NTT kernel.*\(7, "):
+            other.fwd_last(x)
+
+
+# 1, 2, 3: around a block of two messages; 5 and 33 fill no whole number of
+# blocks. One round alone, and all of them: from the second round on, acc_b
+# is gathered from what the round before wrote.
+@pytest.mark.parametrize("rounds", ["one", "all"])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 33])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_trace_kernel_matches_plain(cuda, preset, m, rounds):
+    ctx = _ctx(preset, cuda)
+    f = ctx.f2
+    autos = ctx.trace_autos[:1] if rounds == "one" else ctx.trace_autos
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tk = _uniform(gen, f.q, (len(autos), ctx.params.n2, ctx.gadget_trace.d, 2))
+    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, ctx.gadget_trace, autos)
+    acc = _uniform(gen, f.q, (m, 2, ctx.params.n2))
+    acc[0, :, :3] = torch.tensor([0, f.q - 1, 1], device=cuda)
+    before = build.LAUNCHES[key.name]
+    got = trace(acc, key)
+    assert build.LAUNCHES[key.name] == before + 1
+    assert torch.equal(got, trace_plain(acc, key))
 
 
 @pytest.mark.parametrize("preset", PRESETS)
-def test_trace_kernel_matches_plain(cuda, preset):
+def test_trace_key_on_card_holds_one_tensor(cuda, preset):
+    """On a card the trace key is the kernel's layout alone, without
+    companions, and gives the reference pair back."""
     ctx = _ctx(preset, cuda)
-    f = ctx.f2
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    tk = _uniform(gen, f.q, (len(ctx.trace_autos), ctx.params.n2,
-                             ctx.gadget_trace.d, 2))
-    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, ctx.gadget_trace, ctx.trace_autos)
-    acc = _uniform(gen, f.q, (5, 2, ctx.params.n2))
-    assert torch.equal(trace(acc, key), trace_plain(acc, key))
+    f, g = ctx.f2, ctx.gadget_trace
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tk = _uniform(gen, f.q, (len(ctx.trace_autos), ctx.params.n2, g.d, 2))
+    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, ctx.trace_autos)
+    assert len(key.keys) == 1 and key.nbytes() == tk.numel() * 8
+    assert key.keys[0].shape == (len(ctx.trace_autos), g.d, 2, ctx.params.n2)
+    lay = key.layout
+    assert (key.tw_fwd.numel(), key.tw_inv.numel()) == (2 * lay.tw_fwd, 2 * lay.tw_inv)
+    ref, ref_sh = key.reference()
+    assert torch.equal(ref, tk) and torch.equal(ref_sh, f.shoup_t(tk))
 
 
 def test_detect_kernels_match_plain_and_pass_omd(cuda):

@@ -159,7 +159,7 @@ def _passes_inverse(x, tw, q, log_n, rlog, n_inv):
 
 @pytest.mark.parametrize("preset,level,rlog", [
     ("tiny", 1, 3), ("tiny", 1, 4), ("tiny", 2, 3), ("tiny", 2, 4), ("tiny", 2, 5),
-    ("default", 1, 5)])
+    ("default", 1, 5), ("default", 2, 4)])
 def test_pass_twiddles_drive_the_same_transform(preset, level, rlog):
     """Passes of ``rlog`` stages over the regrouped tables compute the
     radix-2 transform of ``Ntt`` (forward into the base order, inverse

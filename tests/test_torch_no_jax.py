@@ -1,7 +1,7 @@
 """The port imports torch and numpy, never jax.
 
 Runs in a subprocess because this suite's conftest imports jax. Imports
-the package, every submodule, the omd and omr examples and chip_smoke.py.
+the package, every submodule, every example of the port and chip_smoke.py.
 """
 
 import os
@@ -21,6 +21,8 @@ sys.path.insert(0, "examples")
 import omd_torch
 import omr_torch
 import omr_time_analyze_torch
+import bench_kernels_torch
+import profile_detect_torch
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tfhe_omr_tpu"))

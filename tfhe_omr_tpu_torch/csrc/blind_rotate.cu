@@ -5,8 +5,9 @@
 // N = 1024, q1, B = 2^5, d = 4; tfhe_omr_tpu/ops/pallas_fused.py:436) and
 // FusedBlindRotateL2._make_call (second level, N = 2048, q2, B = 2^7, d = 6;
 // pallas_fused.py:1218). One kernel template (blind_rotate.cuh) with every
-// ring, field and gadget constant a template parameter serves both; the
-// plain version is ops/bootstrap.py make_blind_rotate.
+// ring, field and gadget constant a template parameter serves both, on the
+// field arithmetic and NTT passes all kernels share (field.cuh,
+// ntt_passes.cuh); the plain version is ops/bootstrap.py make_blind_rotate.
 //
 // Per step s (pair of secret bits), for each sample of the block:
 //   1. round the accumulator coefficient and take a gadget digit from it
@@ -56,7 +57,7 @@
 // first level a sample's state is a quarter of that and four samples share
 // each key read. Ways to share a key read at the second level that were
 // built, were bit-equal and measured slower than this layout's 187.3 ms
-// (same card, same run of examples/bench_blind_rotate_torch.py; forward
+// (same card, same run of examples/bench_kernels_torch.py; forward
 // twiddles through the read-only cache to make room, which alone costs
 // 1.3 %): S = 2 with T = 1024, DJ = 1, RLOG = 3, 255.0 ms (64 registers,
 // 584 bytes of spill stores); S = 2 with T = 512, DJ = 1, RLOG = 4,
@@ -78,7 +79,7 @@
 // + 55,296 products at the first level and 161,792 + 159,744 at the second:
 // 23.6 ms and 46.2 ms.
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; one session, this kernel and
-// the one it replaces each timed by examples/bench_blind_rotate_torch.py
+// the one it replaces each timed by examples/bench_kernels_torch.py
 // from its own checkout): first level 7168 samples x 256 steps 99.5 ms
 // (1674.1 ms for the kernel this replaces: one sample per block, 64-bit
 // lanes, a barrier per radix-2 stage), second level 1024 x 335 steps
@@ -129,12 +130,12 @@ static int launch(const BrArgs& a) {
   typedef typename C::W W;
   cudaError_t err = allow_smem(blind_rotate_kernel<C>, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  if ((int64_t)a.blocks * C::S < a.n_msgs || a.n_steps > INT32_MAX / C::PLANES)
+  if (((int64_t)a.blocks * C::S) < a.n_msgs || a.n_steps > INT32_MAX / C::PLANES)
     return (int)cudaErrorInvalidValue;
-  blind_rotate_kernel<C><<<(unsigned)a.blocks, C::T, C::SMEM_BYTES, (cudaStream_t)a.stream>>>(
-      (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
-      (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
-      (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh);
+  OMR_LAUNCH(blind_rotate_kernel<C>, (unsigned)a.blocks, C::T, C::SMEM_BYTES, a.stream,
+             (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
+             (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
+             (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh);
   return (int)cudaGetLastError();
 }
 

@@ -1,126 +1,108 @@
-// Homomorphic trace (EvalTr), all rounds of one message in one block.
+// Homomorphic trace (EvalTr): all rounds of S messages in one thread block.
 //
 // Replaces the Pallas kernel FusedTrace._make_trace_call
 // (tfhe_omr_tpu/ops/pallas_fused.py:1765); the plain version is
-// ops/bootstrap.py make_trace. Per round r (Galois element g = N/2^r + 1):
-//   1. the automorphism sigma_g as a signed gather through the static
-//      (gidx, gsign) tables of OmrContext.trace_autos;
-//   2. the exact base-B digits of the automorphed a-part (d = 25 at B = 4),
-//      two digit polynomials per forward NTT pass in shared memory;
-//   3. multiply-accumulate with the trace key row (Shoup products) into two
-//      register accumulators per slot;
-//   4. inverse-NTT both, then acc_a -= pc_a and acc_b += auto_b - pc_b.
-// The trace key is pre-permuted into the radix-2 slot order and laid out
-// (round, digit, out, slot) so that consecutive threads read consecutive
-// slots.
+// ops/bootstrap.py make_trace. One kernel template (trace.cuh) with ring,
+// field and gadget as template parameters, on the NTT passes that the
+// blind rotation uses (ntt_passes.cuh).
 //
-// What bounds it: 26 forward and 2 inverse 2048-point NTTs per round, i.e.
-// the 64-bit modular multiplies and the per-stage __syncthreads; the key
-// (11 x 25 x 2 x 2048 words and companions, 18 MB) stays in L2 cache.
+// Per round r (Galois element g = N / 2^r + 1), for each message:
+//   1. the automorphism sigma_g and the exact base-4 digit of the
+//      automorphed a-part are taken on the way into the first forward NTT
+//      pass: point k of digit j is (x >> 2j) & 3 with x = +-acc_a[m mod N],
+//      m = g^{-1} k mod 2N, negated where m >= N. No table, no second
+//      buffer: one 32-bit multiply gives index and sign;
+//   2. forward-NTT DJ digit polynomials a pass, 2^RLOG points per thread in
+//      registers, butterflies that reduce nothing, twiddles regrouped per
+//      pass in shared memory. The digits are below 4, so the first stage's
+//      product with its one twiddle w is a select among {0, w, 2w, 3w};
+//   3. multiply-accumulate with the key row (r, j): the products of a slot
+//      are summed in 128 bits over all d digits of the round and reduced
+//      once (d x 23 q x q < 2^110), so the key carries no Shoup companions;
+//      each key word is read once per block through the read-only cache;
+//   4. inverse-NTT the two product polynomials; the last pass leaves
+//      acc_a -= pc_a and acc_b += sigma_g(acc_b) - pc_b. sigma_g(acc_b)
+//      gathers acc_b from itself, so it is parked in the digit buffer
+//      (free once the products are summed) before any of acc_b changes.
+// Results are canonical residues: bit-equal to the plain version.
 //
-// Shared memory: acc, automorphed acc and NTT buffer, 2N words each: 96 KB
-// at N = 2048.
-#include "common.cuh"
+// Shared memory (words): acc S x 2 x NP | digits S x max(DJ, 3) x NP |
+// forward twiddles beside their companions, NP = N + N / 16. Reference
+// ring: S = 1, T = 512, DJ = 8 (three passes of eight digits and one of
+// one), RLOG = 4: 206,832 bytes, 20 barriers a round.
+//
+// What bounds it: the integer work. Bytes (each input once) are the 9 MB
+// key and 32 KB a message; per message and round 25 forward and 2 inverse
+// 2048-point transforms (10 int32 multiplies a butterfly) and 102,400 key
+// products (4 each). Ragged batches: messages beyond n_msgs are loaded as
+// zeros and not stored.
+#include "trace.cuh"
 
-constexpr int kTraceSlots = 4;
+//                 W    logN  d   logB  q                    S  T    DJ RLOG
+typedef TrConfig<u64, 11, 25, 2, 1125899906826241ull, 1, 512, 8, 4> TrRef;
+// the small test preset (core/params.py OmrParameters.tiny)
+typedef TrConfig<u64, 9, 19, 2, 274877905921ull, 1, 128, 2, 3> TrTiny;
 
-__global__ void __launch_bounds__(512) trace_kernel(
-    const i64* __restrict__ acc_in, i64* __restrict__ acc_out, int rounds,
-    const i64* __restrict__ gidx, const i64* __restrict__ gsign,
-    const u64* __restrict__ key, const u64* __restrict__ key_sh, NttTables t,
-    Field f, Gadget g) {
-  extern __shared__ u64 sm[];
-  const int n = 1 << t.log_n;
-  const int T = blockDim.x;
-  u64* acc = sm;
-  u64* aut = sm + 2 * n;
-  u64* buf = sm + 4 * n;
-  const size_t io = (size_t)blockIdx.x * 2 * n;
-  for (int k = threadIdx.x; k < 2 * n; k += T) acc[k] = (u64)acc_in[io + k];
-  __syncthreads();
+struct TrArgs {
+  const int64_t* acc_in;
+  int64_t* acc_out;
+  int64_t n_msgs;
+  int rounds;
+  const int* ginv;
+  const void* key;
+  const void* tw_fwd;
+  const void* tw_inv;
+  uint64_t n_inv, n_inv_sh;
+  int log_n, d, log_b;
+  int64_t q;
+  void* stream;
+};
 
-  for (int r = 0; r < rounds; ++r) {
-    const i64* gi = gidx + (size_t)r * n;
-    const i64* gs = gsign + (size_t)r * n;
-#pragma unroll
-    for (int i = 0; i < kTraceSlots; ++i) {
-      const int k = threadIdx.x + i * T;
-      const int src = (int)gi[k];
-      const bool neg = gs[k] < 0;
-      const u64 x0 = acc[src];
-      const u64 x1 = acc[n + src];
-      aut[k] = neg ? mod_neg(x0, f.q) : x0;
-      aut[n + k] = neg ? mod_neg(x1, f.q) : x1;
-    }
-    __syncthreads();
-
-    u64 p[2][kTraceSlots];
-#pragma unroll
-    for (int i = 0; i < kTraceSlots; ++i) p[0][i] = p[1][i] = 0;
-    for (int j = 0; j < g.d; j += 2) {
-      const int np = (j + 1 < g.d) ? 2 : 1;
-#pragma unroll
-      for (int i = 0; i < kTraceSlots; ++i) {
-        const int k = threadIdx.x + i * T;
-        buf[k] = gadget_digit(aut[k], j, g, f.q);
-        if (np == 2) buf[n + k] = gadget_digit(aut[k], j + 1, g, f.q);
-      }
-      __syncthreads();
-      block_ntt_fwd(buf, np, t, f);
-#pragma unroll
-      for (int i = 0; i < kTraceSlots; ++i) {
-        const int k = threadIdx.x + i * T;
-        for (int pp = 0; pp < np; ++pp) {
-          const u64 dv = buf[pp * n + k];
-#pragma unroll
-          for (int o = 0; o < 2; ++o) {
-            const size_t idx = (((size_t)r * g.d + j + pp) * 2 + o) * n + k;
-            p[o][i] = mod_add(p[o][i], mul_shoup(dv, key[idx], key_sh[idx], f), f.q);
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < kTraceSlots; ++i) {
-      const int k = threadIdx.x + i * T;
-      buf[k] = p[0][i];
-      buf[n + k] = p[1][i];
-    }
-    __syncthreads();
-    block_ntt_inv(buf, 2, t, f);
-#pragma unroll
-    for (int i = 0; i < kTraceSlots; ++i) {
-      const int k = threadIdx.x + i * T;
-      acc[k] = mod_sub(acc[k], buf[k], f.q);
-      acc[n + k] = mod_add(acc[n + k], mod_sub(aut[n + k], buf[n + k], f.q), f.q);
-    }
-    __syncthreads();
-  }
-  for (int k = threadIdx.x; k < 2 * n; k += T) acc_out[io + k] = (i64)acc[k];
+template <class C>
+static bool matches(int log_n, int64_t q, int d, int log_b) {
+  return log_n == C::LOG_N && (u64)q == C::F::Q && d == C::D && log_b == C::LOG_B;
 }
 
-// acc (n_msgs, 2, N) coefficient domain; gidx / gsign (rounds, N); key /
-// key_sh (rounds, d, 2, N) in the base slot order; exact base-2^log_b digits.
-extern "C" int omr_trace(const int64_t* acc_in, int64_t* acc_out, int64_t n_msgs,
-                         int rounds, const int64_t* gidx, const int64_t* gsign,
-                         const int64_t* key, const int64_t* key_sh,
-                         const int64_t* fwd_tw, const int64_t* fwd_tw_sh,
-                         const int64_t* inv_tw, const int64_t* inv_tw_sh,
-                         int log_n, int64_t q, int shoup_shift, int64_t n_inv,
-                         int64_t n_inv_sh, int log_b, int d, void* stream) {
-  const int n = 1 << log_n;
-  if (n % kTraceSlots != 0 || n / kTraceSlots > 512) return (int)cudaErrorInvalidValue;
-  NttTables t{(const u64*)fwd_tw, (const u64*)fwd_tw_sh, (const u64*)inv_tw,
-              (const u64*)inv_tw_sh, (u64)n_inv, (u64)n_inv_sh, log_n};
-  Field f{(u64)q, shoup_shift};
-  Gadget g{log_b, d, 0, 0, 0, 0};
-  const size_t smem = (size_t)6 * n * sizeof(u64);
-  cudaError_t err = allow_smem(trace_kernel, smem);
+template <class C>
+static int launch(const TrArgs& a) {
+  typedef typename C::W W;
+  cudaError_t err = allow_smem(trace_kernel<C>, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  trace_kernel<<<(unsigned)n_msgs, n / kTraceSlots, smem, (cudaStream_t)stream>>>(
-      (const i64*)acc_in, (i64*)acc_out, rounds, (const i64*)gidx,
-      (const i64*)gsign, (const u64*)key, (const u64*)key_sh, t, f, g);
+  const int64_t blocks = (a.n_msgs + C::S - 1) / C::S;
+  if (blocks > INT32_MAX || a.rounds < 0) return (int)cudaErrorInvalidValue;
+  OMR_LAUNCH(trace_kernel<C>, (unsigned)blocks, C::T, C::SMEM_BYTES, a.stream,
+             (const i64*)a.acc_in, (i64*)a.acc_out, (long long)a.n_msgs, a.rounds,
+             a.ginv, (const W*)a.key, (const W*)a.tw_fwd, (const W*)a.tw_inv,
+             (W)a.n_inv, (W)a.n_inv_sh);
   return (int)cudaGetLastError();
+}
+
+// The layout constants of the instantiation for (log_n, q, d, log_b):
+// out = {S, DJ, RLOG, word bytes, TW_FWD, TW_INV}; non-zero if there is none.
+extern "C" int omr_trace_config(int log_n, int64_t q, int d, int log_b, int* out) {
+#define OMR_TR_TRY(C)                                                            \
+  if (matches<C>(log_n, q, d, log_b)) {                                          \
+    out[0] = C::S; out[1] = C::DJ; out[2] = C::RLOG; out[3] = (int)sizeof(C::W); \
+    out[4] = C::TW_FWD; out[5] = C::TW_INV;                                      \
+    return 0;                                                                    \
+  }
+  OMR_TR_TRY(TrRef)
+  OMR_TR_TRY(TrTiny)
+#undef OMR_TR_TRY
+  return (int)cudaErrorInvalidValue;
+}
+
+// acc (n_msgs, 2, N) int64 coefficient domain; ginv (rounds) int32; key
+// (rounds, d, 2, N), tw_fwd, tw_inv in the instantiation's word, laid out by
+// the constants omr_trace_config reports; exact base-2^log_b digits.
+extern "C" int omr_trace(const int64_t* acc_in, int64_t* acc_out, int64_t n_msgs,
+                         int rounds, const int* ginv, const void* key,
+                         const void* tw_fwd, const void* tw_inv, uint64_t n_inv,
+                         uint64_t n_inv_sh, int log_n, int64_t q, int d, int log_b,
+                         void* stream) {
+  const TrArgs a{acc_in, acc_out, n_msgs, rounds, ginv, key, tw_fwd, tw_inv,
+                 n_inv, n_inv_sh, log_n, d, log_b, q, stream};
+  if (matches<TrRef>(log_n, q, d, log_b)) return launch<TrRef>(a);
+  if (matches<TrTiny>(log_n, q, d, log_b)) return launch<TrTiny>(a);
+  return (int)cudaErrorInvalidValue;
 }

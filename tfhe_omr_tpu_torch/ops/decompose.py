@@ -10,7 +10,7 @@ convention so digits and gadget values are bit-equal to the JAX package:
 * **exact** (``d * log_B >= ceil(log q)``; key-switching and trace bases):
   unsigned base-B digits of x, ``h_j = B**j``, zero error.
 
-The CUDA kernels compute the same digits: ``csrc/common.cuh`` the exact
+The CUDA kernels compute the same digits: ``csrc/trace.cuh`` the exact
 ones of the trace, ``csrc/blind_rotate.cuh`` the approximate ones from one
 rounding and an offset (``H = sum_j (B/2) B**j``: the balanced digits of u
 are the plain base-B digits of ``u + H`` less ``B/2``).

@@ -13,10 +13,12 @@ The key objects take the plain NTT-domain keys in the JAX package's layout
 and reference slot order, with their Shoup companions, and hold one layout
 on their device: the reference one on the CPU; on a card the kernel's,
 permuted once into the radix-2 slot order of the in-kernel NTT with the
-coefficient slot innermost (the blind-rotation keys in the order and word
-size of ``csrc/blind_rotate.cu``, see :func:`kernel_key_layout`).
-``reference()`` gives the reference layout back (gathered on the card) for
-the plain version.
+coefficient slot innermost, in the order and word size in which the kernel
+consumes it and without companions (the kernels sum their key products
+lazily): :func:`kernel_key_layout`, :func:`trace_key_layout`.
+``reference()`` gives the reference layout back (gathered on the card, the
+companions recomputed) for the plain version. The layout constants of each
+kernel come from the built library (:func:`br_layout`, :func:`tr_layout`).
 """
 
 from __future__ import annotations
@@ -29,24 +31,18 @@ import torch
 
 from tfhe_omr_tpu_torch.ops.bootstrap import make_blind_rotate, make_trace
 from tfhe_omr_tpu_torch.ops.decompose import SignedGadget
-from tfhe_omr_tpu_torch.ops.ntt import Ntt
+from tfhe_omr_tpu_torch.ops.ntt import (  # noqa: F401  (the layout tests reach them here)
+    Ntt, as_words, pass_stages, pass_twiddles, shoup_companion,
+)
 from tfhe_omr_tpu_torch.utils import build
-
-
-def _ntt_args(ntt: Ntt):
-    f = ntt.field
-    return (
-        build.ptr(ntt.fwd_tw), build.ptr(ntt.fwd_tw_sh),
-        build.ptr(ntt.inv_tw), build.ptr(ntt.inv_tw_sh),
-        ntt.log_n, f.q, f.shoup_shift, ntt.n_inv, ntt.n_inv_sh,
-    )
 
 
 @dataclass(frozen=True)
 class BrLayout:
-    """Layout constants of one instantiation of ``csrc/blind_rotate.cu``:
-    word size, samples per block, digits per NTT pass, radix-2 stages per
-    NTT pass, entries of the regrouped forward / inverse twiddle tables."""
+    """Layout constants of one instantiation of ``csrc/blind_rotate.cu`` or
+    ``csrc/trace.cu``: word size, samples per block, digits per NTT pass,
+    radix-2 stages per NTT pass, entries of the regrouped forward / inverse
+    twiddle tables."""
 
     word_bits: int
     s: int
@@ -60,78 +56,45 @@ class BrLayout:
         return torch.int32 if self.word_bits == 32 else torch.int64
 
 
+def _layout(config, what: str, ntt: Ntt, gadget: SignedGadget) -> BrLayout:
+    sig = (ntt.log_n, ntt.field.q, gadget.d, gadget.log_b)
+    out = (ctypes.c_int * 6)()
+    if config(*sig, out):
+        raise ValueError(
+            f"no {what} kernel is instantiated for (log N, q, d, log B) = {sig}")
+    s, dj, rlog, word_bytes, tw_fwd, tw_inv = out
+    return BrLayout(8 * word_bytes, s, dj, rlog, tw_fwd, tw_inv)
+
+
 def br_layout(ntt: Ntt, gadget: SignedGadget) -> BrLayout:
     """The kernel instantiation compiled for a ring, field and gadget, or
     raise. The ``BrConfig`` typedefs of ``csrc/blind_rotate.cu`` are the
     only table of these constants; this asks the built library for them."""
-    sig = (ntt.log_n, ntt.field.q, gadget.d, gadget.log_b)
-    out = (ctypes.c_int * 6)()
-    if build.library().omr_blind_rotate_config(*sig, out):
-        raise ValueError(
-            f"no blind-rotation kernel is instantiated for (log N, q, d, log B) = {sig}")
-    s, dj, rlog, word_bytes, tw_fwd, tw_inv = out
-    return BrLayout(8 * word_bytes, s, dj, rlog, tw_fwd, tw_inv)
+    return _layout(build.library().omr_blind_rotate_config, "blind-rotation", ntt, gadget)
+
+
+def tr_layout(ntt: Ntt, gadget: SignedGadget) -> BrLayout:
+    """The same for the ``TrConfig`` typedefs of ``csrc/trace.cu``."""
+    return _layout(build.library().omr_trace_config, "trace", ntt, gadget)
+
+
+def kernel_tables(ntt: Ntt, lay: BrLayout, name: str):
+    """(forward twiddles, inverse twiddles, companion of 1/N) as a kernel
+    of layout ``lay`` reads them (:meth:`Ntt.operand_table`)."""
+    tables = []
+    for inverse, expect in ((False, lay.tw_fwd), (True, lay.tw_inv)):
+        t = ntt.operand_table(lay.rlog, lay.word_bits, inverse)
+        if t.numel() != 2 * expect:
+            raise ValueError(f"{name}: {t.numel() // 2} twiddles regrouped, the "
+                             f"kernel reads {expect}")
+        tables.append(t)
+    return (*tables, int(shoup_companion(ntt.n_inv, ntt.field.q, lay.word_bits)))
 
 
 def n_blocks(n_msgs: int, s: int) -> int:
     """Blocks of a launch that serves ``s`` samples per block; the last
     block masks the samples beyond ``n_msgs`` inside the kernel."""
     return -(-n_msgs // s)
-
-
-def shoup_companion(w, q: int, shift: int) -> np.ndarray:
-    """``floor(w * 2**shift / q)`` as uint64 (exact host integers): the
-    Shoup companion at the kernel's word size. For any x < 2**shift,
-    ``x * w - ((x * w_sh) >> shift) * q`` lies in [0, 2q), whatever the
-    shift, so the canonical residue is the one of ``PrimeField.mul_shoup``."""
-    flat = [(int(v) << shift) // q for v in np.asarray(w).reshape(-1)]
-    return np.array(flat, dtype=np.uint64).reshape(np.shape(w))
-
-
-def as_words(a: np.ndarray, word_bits: int) -> np.ndarray:
-    """Unsigned values below 2**word_bits as the signed dtype torch holds
-    (the same bits)."""
-    if word_bits == 32:
-        return np.asarray(a, dtype=np.uint64).astype(np.uint32).view(np.int32)
-    return np.asarray(a, dtype=np.uint64).view(np.int64)
-
-
-def pass_stages(log_n: int, rlog: int) -> list[int]:
-    """Radix-2 stages of each NTT pass: ``rlog`` each, the rest last."""
-    return [min(rlog, log_n - s0) for s0 in range(0, log_n, rlog)]
-
-
-def pass_twiddles(tw: np.ndarray, log_n: int, rlog: int, inverse: bool) -> np.ndarray:
-    """The radix-2 twiddle table of :class:`Ntt` (entry ``m + i`` at stage
-    ``m``) regrouped in the order the kernel's passes read it.
-
-    A forward pass over stages ``[s0, s0 + r)`` keeps ``2**r`` points
-    ``h * 2**(log_n - s0) + i * 2**low + l`` in registers; at stage
-    ``s0 + k`` the butterfly of local index ``i`` uses entry
-    ``2**(s0 + k) + h * 2**k + (i >> (r - k))``. The pass's table is
-    ``[t, h]`` with ``t = 2**k - 1 + (i >> (r - k))``, ``h`` innermost, so
-    the threads of a warp read neighbouring words. The inverse pass over
-    pair strides ``2**g0 .. 2**(g0 + r - 1)`` uses entry
-    ``(N >> (g0 + k + 1)) + h * 2**(r - 1 - k) + (i >> (k + 1))`` at
-    ``t = 2**r - 2**(r - k) + (i >> (k + 1))``.
-    """
-    n = 1 << log_n
-    out = []
-    s0 = 0
-    for r in pass_stages(log_n, rlog):
-        if not inverse:
-            hi = 1 << s0
-            for k in range(r):
-                for ihi in range(1 << k):
-                    out.extend(tw[(1 << (s0 + k)) + h * (1 << k) + ihi] for h in range(hi))
-        else:
-            hi = n >> (s0 + r)
-            for k in range(r):
-                cnt = 1 << (r - 1 - k)
-                for ii in range(cnt):
-                    out.extend(tw[(n >> (s0 + k + 1)) + h * cnt + ii] for h in range(hi))
-        s0 += r
-    return np.array(out, dtype=np.int64)
 
 
 def kernel_key_layout(bsk: torch.Tensor, n_steps: int, n: int, d: int, dj: int,
@@ -168,35 +131,18 @@ class BlindRotateKey:
         self.name = name
         self.n_steps = bsk.shape[0] // 3
         self.plain = make_blind_rotate(ntt.field, ntt, gadget)
-        self.on_card = bsk.device.type == "cuda"
+        self.on_card = build.device_kind(bsk) == "cuda"
         self.keys = (bsk, bsk_sh)
         if self.on_card:
             lay = self.layout = br_layout(ntt, gadget)
             self.keys = (kernel_key_layout(bsk, self.n_steps, ntt.n, gadget.d,
                                            lay.dj, ntt.perm_inv, lay.dtype),)
-            self._kernel_tables(bsk.device)
-
-    def _kernel_tables(self, dev) -> None:
-        """Twiddles regrouped per pass, interleaved with companions at the word's shift,
-        the psi-power table and the base orders, in the kernel's words."""
-        ntt, lay = self.ntt, self.layout
-        q, wb = ntt.field.q, lay.word_bits
-
-        def table(tw, inverse):
-            t = pass_twiddles(tw.cpu().numpy(), ntt.log_n, lay.rlog, inverse)
-            # each twiddle followed by its companion: one vector load
-            if len(t) != (lay.tw_inv if inverse else lay.tw_fwd):
-                raise ValueError(f"{self.name}: {len(t)} twiddles regrouped, the "
-                                 f"kernel reads {lay.tw_inv if inverse else lay.tw_fwd}")
-            both = np.stack([t.astype(np.uint64), shoup_companion(t, q, wb)], axis=1)
-            return torch.as_tensor(as_words(both.reshape(-1), wb), device=dev)
-
-        self.tw_fwd = table(ntt.fwd_tw, False)
-        self.tw_inv = table(ntt.inv_tw, True)
-        self.mono = ntt.mono.to(lay.dtype)
-        self.orders = ntt.base_orders_t.to(torch.int32)
-        self.n_inv = ntt.n_inv
-        self.n_inv_sh = int(shoup_companion(ntt.n_inv, q, wb))
+            # the kernel's tables, in its word: per-pass twiddles beside their
+            # companions, the psi-power table and the base orders
+            self.tw_fwd, self.tw_inv, self.n_inv_sh = kernel_tables(ntt, lay, name)
+            self.mono = ntt.mono.to(lay.dtype)
+            self.orders = ntt.base_orders_t.to(torch.int32)
+            self.n_inv = ntt.n_inv
 
     def reference(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(bsk, bsk_sh) in the reference layout and slot order, int64."""
@@ -251,11 +197,35 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     return out
 
 
+def auto_multipliers(autos, n: int) -> list[int]:
+    """Per round, the inverse mod 2N of the Galois element: ``csrc/trace.cu``
+    takes index and sign of the automorphism from one multiply,
+    ``sigma_g(c)[k] = +-c[m mod N]`` with ``m = g**-1 * k mod 2N``, negated
+    where ``m >= N``: the source index in the low ``log N`` bits of ``m``,
+    the sign in the bit above them."""
+    return [pow(int(g), -1, 2 * n) for g, _gidx, _gsign in autos]
+
+
+def trace_key_layout(trace_k: torch.Tensor, perm_inv: torch.Tensor) -> torch.Tensor:
+    """Reference layout ``(rounds, N, d, 2)`` (slot, digit, out) -> the
+    kernel's ``(rounds, d, 2, N)``, slots in the radix-2 order."""
+    return trace_k.permute(0, 2, 3, 1)[..., perm_inv].contiguous()
+
+
+def trace_reference_layout(k: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`trace_key_layout`."""
+    return k[..., perm].permute(0, 3, 1, 2)
+
+
 class TraceKey:
     """The automorphism key-switching keys for :func:`trace`.
 
     trace_k / trace_k_sh: (rounds, N, d, 2) int64, reference order;
-    ``autos`` is ``OmrContext.trace_autos``.
+    ``autos`` is ``OmrContext.trace_autos``. On the CPU both are kept as
+    given. On a card only the kernel's layout is held
+    (:func:`trace_key_layout`, no companions: the kernel sums its products
+    lazily), beside the kernel's twiddle tables and the rounds'
+    automorphism multipliers.
     """
 
     def __init__(self, trace_k: torch.Tensor, trace_k_sh: torch.Tensor,
@@ -266,25 +236,21 @@ class TraceKey:
         self.name = name
         self.rounds = len(autos)
         self.plain = make_trace(ntt.field, ntt, gadget, autos)
-        self.on_card = trace_k.device.type == "cuda"
+        self.on_card = build.device_kind(trace_k) == "cuda"
         self.keys = (trace_k, trace_k_sh)
         if self.on_card:
-            dev = trace_k.device
-            self.gidx = torch.stack(
-                [torch.as_tensor(gi) for _g, gi, _s in autos]).to(dev)
-            self.gsign = torch.stack(
-                [torch.as_tensor(gs) for _g, _i, gs in autos]).to(dev)
-            # kernel layout (rounds, d, 2, N), radix-2 slot order
-            self.keys = tuple(
-                k.permute(0, 2, 3, 1)[..., ntt.perm_inv].contiguous()
-                for k in self.keys
-            )
+            lay = self.layout = tr_layout(ntt, gadget)
+            self.keys = (trace_key_layout(trace_k, ntt.perm_inv),)
+            self.tw_fwd, self.tw_inv, self.n_inv_sh = kernel_tables(ntt, lay, name)
+            self.ginv = torch.tensor(auto_multipliers(autos, ntt.n),
+                                     dtype=torch.int32, device=trace_k.device)
 
     def reference(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(trace_k, trace_k_sh) in the reference layout and slot order."""
         if not self.on_card:
             return self.keys
-        return tuple(k[..., self.ntt.perm].permute(0, 3, 1, 2) for k in self.keys)
+        k = trace_reference_layout(self.keys[0], self.ntt.perm)
+        return k, self.ntt.field.shoup_t(k)
 
     def nbytes(self) -> int:
         return sum(k.numel() * k.element_size() for k in self.keys)
@@ -298,7 +264,8 @@ def trace_plain(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
 
 def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
     """EvalTr on every message: acc (B, 2, N) coefficient domain, already
-    multiplied by N^{-1} -> (B, 2, N)."""
+    multiplied by N^{-1} -> (B, 2, N). Any B: the kernel serves
+    ``layout.s`` messages per block and masks the rest of the last block."""
     if build.device_kind(acc) == "cpu":
         return trace_plain(acc, key)
     ntt, g = key.ntt, key.gadget
@@ -309,15 +276,15 @@ def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
         raise ValueError("trace: the key is not on the card")
     acc = acc.contiguous()
     out = torch.empty_like(acc)
-    kk, kk_sh = key.keys
-    build.require_cuda("trace", acc, kk, kk_sh, key.gidx, key.gsign, ntt.fwd_tw)
+    build.require_cuda("trace", acc, key.keys[0], key.tw_fwd, key.tw_inv, key.ginv,
+                       dtypes=(torch.int64, torch.int32))
     if n_msgs == 0:
         return out
     lib = build.library()
     rc = lib.omr_trace(
-        build.ptr(acc), build.ptr(out), n_msgs, key.rounds,
-        build.ptr(key.gidx), build.ptr(key.gsign), build.ptr(kk),
-        build.ptr(kk_sh), *_ntt_args(ntt), g.log_b, g.d,
+        build.ptr(acc), build.ptr(out), n_msgs, key.rounds, build.ptr(key.ginv),
+        build.ptr(key.keys[0]), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
+        ntt.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
         build.stream_of(acc),
     )
     build.check(lib, rc, key.name)

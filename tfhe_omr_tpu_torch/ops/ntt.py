@@ -34,6 +34,10 @@ tensor runs the plain torch version, a CUDA tensor launches the
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
+from functools import cached_property
+
 import numpy as np
 import torch
 
@@ -130,6 +134,75 @@ def reference_radices(field: PrimeField, n: int):
     if 2 * field.bits + 4 <= 62 and n >= 32:
         return _factorize(n)  # SmallFieldNtt
     return None  # NegacyclicNtt
+
+
+def shoup_companion(w, q: int, shift: int) -> np.ndarray:
+    """``floor(w * 2**shift / q)`` as uint64 (exact host integers): the
+    Shoup companion at the kernel's word size. For any x < 2**shift,
+    ``x * w - ((x * w_sh) >> shift) * q`` lies in [0, 2q), whatever the
+    shift, so the canonical residue is the one of ``PrimeField.mul_shoup``."""
+    flat = [(int(v) << shift) // q for v in np.asarray(w).reshape(-1)]
+    return np.array(flat, dtype=np.uint64).reshape(np.shape(w))
+
+
+def as_words(a: np.ndarray, word_bits: int) -> np.ndarray:
+    """Unsigned values below 2**word_bits as the signed dtype torch holds
+    (the same bits)."""
+    if word_bits == 32:
+        return np.asarray(a, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return np.asarray(a, dtype=np.uint64).view(np.int64)
+
+
+def pass_stages(log_n: int, rlog: int) -> list[int]:
+    """Radix-2 stages of each NTT pass: ``rlog`` each, the rest last."""
+    return [min(rlog, log_n - s0) for s0 in range(0, log_n, rlog)]
+
+
+def pass_twiddles(tw: np.ndarray, log_n: int, rlog: int, inverse: bool) -> np.ndarray:
+    """The radix-2 twiddle table of :class:`Ntt` (entry ``m + i`` at stage
+    ``m``) regrouped in the order the kernels' passes read it
+    (``csrc/ntt_passes.cuh``).
+
+    A forward pass over stages ``[s0, s0 + r)`` keeps ``2**r`` points
+    ``h * 2**(log_n - s0) + i * 2**low + l`` in registers; at stage
+    ``s0 + k`` the butterfly of local index ``i`` uses entry
+    ``2**(s0 + k) + h * 2**k + (i >> (r - k))``. The pass's table is
+    ``[t, h]`` with ``t = 2**k - 1 + (i >> (r - k))``, ``h`` innermost, so
+    the threads of a warp read neighbouring words. The inverse pass over
+    pair strides ``2**g0 .. 2**(g0 + r - 1)`` uses entry
+    ``(N >> (g0 + k + 1)) + h * 2**(r - 1 - k) + (i >> (k + 1))`` at
+    ``t = 2**r - 2**(r - k) + (i >> (k + 1))``.
+    """
+    n = 1 << log_n
+    out = []
+    s0 = 0
+    for r in pass_stages(log_n, rlog):
+        if not inverse:
+            hi = 1 << s0
+            for k in range(r):
+                for ihi in range(1 << k):
+                    out.extend(tw[(1 << (s0 + k)) + h * (1 << k) + ihi] for h in range(hi))
+        else:
+            hi = n >> (s0 + r)
+            for k in range(r):
+                cnt = 1 << (r - 1 - k)
+                for ii in range(cnt):
+                    out.extend(tw[(n >> (s0 + k + 1)) + h * cnt + ii] for h in range(hi))
+        s0 += r
+    return np.array(out, dtype=np.int64)
+
+
+@dataclass(frozen=True)
+class NttLayout:
+    """Layout constants of one instantiation of ``csrc/ntt.cu``: word size,
+    rows a block takes per turn, radix-2 stages per pass, entries of a
+    regrouped twiddle table, blocks an SM holds."""
+
+    word_bits: int
+    rows: int
+    rlog: int
+    tw: int
+    blocks_per_sm: int
 
 
 class Ntt:
@@ -264,24 +337,64 @@ class Ntt:
         return torch.movedim(self.inv_plain(torch.movedim(x, -1, 0)), 0, -1)
 
     # -------------------------------------------------------- kernel wrapper
+    def operand_table(self, rlog: int, word_bits: int, inverse: bool) -> torch.Tensor:
+        """The forward or inverse twiddles regrouped for passes of ``rlog``
+        stages, each followed by its companion at the word's shift (one
+        vector load brings both), in words of ``word_bits``."""
+        tw = (self.inv_tw if inverse else self.fwd_tw).cpu().numpy()
+        t = pass_twiddles(tw, self.log_n, rlog, inverse)
+        both = np.stack([t.astype(np.uint64),
+                         shoup_companion(t, self.field.q, word_bits)], axis=1)
+        return torch.as_tensor(as_words(both.reshape(-1), word_bits), device=self.device)
+
+    def kernel_layout(self) -> NttLayout:
+        """The kernel instantiation compiled for this ring and field, or
+        raise. The ``NttConfig`` typedefs of ``csrc/ntt.cu`` are the only
+        table of these constants; this asks the built library for them."""
+        out = (ctypes.c_int * 5)()
+        if build.library().omr_ntt_config(self.log_n, self.field.q, out):
+            raise ValueError("no NTT kernel is instantiated for (log N, q) = "
+                             f"{(self.log_n, self.field.q)}")
+        rows, rlog, word_bytes, tw, blocks_per_sm = out
+        return NttLayout(8 * word_bytes, rows, rlog, tw, blocks_per_sm)
+
+    @cached_property
+    def row_kernel_tables(self):
+        """(layout, per direction (twiddles, 16-bit permutation), 1/N's
+        companion, blocks that fill the card), made at the first launch."""
+        lay = self.kernel_layout()
+        tables = []
+        for inverse, perm in ((False, self.perm), (True, self.perm_inv)):
+            tw = self.operand_table(lay.rlog, lay.word_bits, inverse)
+            if tw.numel() != 2 * lay.tw:
+                raise ValueError(f"{self.name}: {tw.numel() // 2} twiddles regrouped, "
+                                 f"the kernel reads {lay.tw}")
+            tables.append((tw, perm.to(torch.int16)))
+        n_inv_sh = int(shoup_companion(self.n_inv, self.field.q, lay.word_bits))
+        sms = torch.cuda.get_device_properties(self.device).multi_processor_count
+        return lay, tables, n_inv_sh, lay.blocks_per_sm * sms
+
     def _launch(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         if x.shape[-1] != self.n:
             raise ValueError(f"expected (..., {self.n}), got {tuple(x.shape)}")
         rows = x.reshape(-1, self.n).contiguous()
+        if rows.data_ptr() % 16:
+            rows = rows.clone()  # the kernel moves 16 bytes at a time
         out = torch.empty_like(rows)
-        tw, tw_sh = (
-            (self.inv_tw, self.inv_tw_sh) if inverse
-            else (self.fwd_tw, self.fwd_tw_sh)
-        )
-        build.require_cuda("ntt", rows, out, tw, tw_sh, self.perm)
+        lay, tables, n_inv_sh, resident = self.row_kernel_tables
+        tw, perm = tables[int(inverse)]
+        build.require_cuda("ntt", rows, out)
+        build.require_cuda("ntt", rows, tw, perm,
+                           dtypes=(torch.int64, torch.int32, torch.int16))
         if rows.shape[0] == 0:
             return out.reshape(x.shape)
+        # a block outlives its rows: no more blocks than the card holds
+        groups = -(-rows.shape[0] // lay.rows)
         lib = build.library()
         rc = lib.omr_ntt(
-            build.ptr(rows), build.ptr(out), build.ptr(tw), build.ptr(tw_sh),
-            build.ptr(self.perm), rows.shape[0], self.log_n, self.field.q,
-            self.field.shoup_shift, self.n_inv, self.n_inv_sh, int(inverse),
-            build.stream_of(rows),
+            build.ptr(rows), build.ptr(out), rows.shape[0], build.ptr(tw),
+            build.ptr(perm), self.n_inv, n_inv_sh, self.log_n, self.field.q,
+            int(inverse), min(groups, resident), build.stream_of(rows),
         )
         build.check(lib, rc, self.name)
         build.LAUNCHES[self.name] += 1

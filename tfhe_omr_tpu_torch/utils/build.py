@@ -45,15 +45,15 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # (arguments of each C entry point, in order; see csrc/*.cu)
-_NTT_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I64, _I64, _I32, _P]
 _U64 = ctypes.c_uint64
+_NTT_ARGS = [_P, _P, _I64, _P, _P, _U64, _U64, _I32, _I64, _I32, _I32, _P]
 _BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U64,
             _I32, _I64, _I32, _I32, _I32, _P]
-_TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P,
-               _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64,
-               _I32, _I32, _P]
+_TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P, _U64, _U64,
+               _I32, _I64, _I32, _I32, _P]
 
 _library = None
+_host_library = None
 #: seconds the last build took (0.0 when a cached library was loaded)
 build_seconds = 0.0
 #: nvcc's report (registers, shared memory, spills) of the last build
@@ -138,7 +138,12 @@ def library() -> ctypes.CDLL:
         so_path.with_suffix(".log").write_text(build_log)
     elif so_path.with_suffix(".log").exists():
         build_log = so_path.with_suffix(".log").read_text()
-    lib = ctypes.CDLL(str(so_path))
+    _library = _bind(ctypes.CDLL(str(so_path)))
+    return _library
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types."""
     for name, args in (
         ("omr_ntt", _NTT_ARGS),
         ("omr_blind_rotate", _BR_ARGS),
@@ -147,12 +152,43 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.omr_blind_rotate_config.argtypes = [_I32, _I64, _I32, _I32, _P]
-    lib.omr_blind_rotate_config.restype = ctypes.c_int
+    for fn in (lib.omr_blind_rotate_config, lib.omr_trace_config):
+        fn.argtypes = [_I32, _I64, _I32, _I32, _P]
+        fn.restype = ctypes.c_int
+    lib.omr_ntt_config.argtypes = [_I32, _I64, _P]
+    lib.omr_ntt_config.restype = ctypes.c_int
     lib.omr_error_string.argtypes = [ctypes.c_int]
     lib.omr_error_string.restype = ctypes.c_char_p
-    _library = lib
     return lib
+
+
+def host_library() -> ctypes.CDLL:
+    """The same sources compiled for the host with g++ against the stand-in
+    ``csrc/host/cuda_runtime.h``: a kernel runs one block after another, a
+    block as one host thread per CUDA thread. For tests of the kernel
+    templates where there is no card; no entry point of the port uses it."""
+    global _host_library
+    if _host_library is not None:
+        return _host_library
+    digest = hashlib.sha256()
+    for src in [*_sources(), CSRC_DIR / "host" / "cuda_runtime.h"]:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so_path = BUILD_DIR / f"libomr_kernels_host_{digest.hexdigest()[:16]}.so"
+    if not so_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+               "-I", str(CSRC_DIR / "host"), "-o", str(tmp)]
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            cmd += ["-x", "c++", str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so_path)
+    _host_library = _bind(ctypes.CDLL(str(so_path)))
+    return _host_library
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -36,9 +36,24 @@ Phases (each prints its result; any failure exits non-zero):
      encoders and in the decode; both digests of the first 2048 messages
      must equal the plain path's (plain=True), and the Retriever's decrypt
      the plain inverse NTT's.
+  8. sharded and multi-process detection at the reference parameters, with
+     phase 7's keys: a ShardedDetector over every visible card on a ragged
+     batch (B = 1000): detect, one index digest and the payload digests
+     bit-equal to the single Detector's with the same numpy streams, the
+     blind rotations, the trace and the q2 NTT launched; warm seconds per
+     batch of the plain and the sharded path (several detects, one
+     synchronisation; order plain, sharded, sharded, plain) and the
+     overhead. Then the same through a process group: one rank per visible
+     card runs examples/omr_torch.py at D = 2048 with --coordinator on
+     127.0.0.1, backend nccl, so the digests' int64 all_reduce runs through
+     NCCL on the card even with one rank; rank 0's record must say
+     byte_exact and true_subset_of_decoded and count a launch of every
+     kernel, the q1 NTT in its key generation, and a rank that fails or
+     outlives its time limit fails the script.
 The line before the last is a JSON record of the kernels (``launches``:
-phases 4+5 and 7 together, ``launches_by_path`` each, ``launches_per_detect``
-one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
+phases 4+5, 7 and 8 together, ``launches_by_path`` each (the ranks of phase
+8 are processes of their own: ``ranks`` is what rank 0's record counts),
+``launches_per_detect`` one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
 ``ms_main_path`` and ``bound_ms`` at the main path's); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -47,10 +62,13 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -70,6 +88,11 @@ INT32_MULS_PER_S = 67e12 / 4  # int32 multiply-adds: half the float32 lanes
 OMR_D = 8192
 OMR_PERTINENT = 50
 ENCODE_CHUNK = 2048  # the encoders' default chunk
+# phase 8: a batch that no shard count divides evenly, and the ranks' board
+SHARDED_BATCH = 1000
+SHARDED_REPS = 3
+RANKS_D = 2048
+RANK_TIMEOUT_S = 420
 
 # (counter name, JSON name, source, the TPU kernel it replaces)
 KERNELS = [
@@ -273,7 +296,8 @@ def phase_compare(ctx):
 
 
 def phase_omr(params, gpu):
-    """Phase 7; returns the kernel launches of the pipeline's run."""
+    """Phase 7; returns the kernel launches of the pipeline's run and the
+    keys it made."""
     from omr_torch import make_keys, run_board
     from tfhe_omr_tpu_torch.utils import build
 
@@ -335,7 +359,128 @@ def phase_omr(params, gpu):
                                  "through K4 != inv_last_plain")
     say("[omr] Retriever decrypt (index and payload digests) bit-equal to "
         "inv_last_plain")
+    return launches, keys
+
+
+def phase_sharded(keys, gpu):
+    """Phase 8, one process: the ShardedDetector over every visible card
+    against the single Detector; returns the sharded run's launches."""
+    from tfhe_omr_tpu_torch.core.payload import random_payloads
+    from tfhe_omr_tpu_torch.core.sender import ClueBatch
+    from tfhe_omr_tpu_torch.parallel import ShardedDetector, make_data_mesh
+    from tfhe_omr_tpu_torch.utils import build
+
+    det = keys.detector
+    params = keys.skp.params
+    n_dim = params.clue_params.dimension
+    buf = keys.sender.gen_clues_device_resident(SHARDED_BATCH, SEED + 20)
+    clues = ClueBatch(buf[:, :n_dim], buf[:, n_dim:])
+    rp = keys.skp.generate_retriever(OMR_D, OMR_PERTINENT).params
+    payloads = random_payloads(np.random.default_rng(SEED + 21), SHARDED_BATCH,
+                               rp.payload_length)
+    sharded = ShardedDetector(det, make_data_mesh())  # no devices: every card
+    if sharded.n_dev != torch.cuda.device_count():
+        raise AssertionError(f"the mesh holds {sharded.n_dev} devices")
+
+    def digests(runner, pv):
+        return (runner.encode_pertinent_indices(rp, pv, np.random.default_rng(SEED + 22)),
+                runner.encode_pertinent_payloads(rp, pv, payloads, SEED + 23))
+
+    build.reset_launches()
+    pv_s = sharded.detect(clues)
+    idx_s, pay_s = digests(sharded, pv_s)
+    sharded.synchronize()
+    launches = dict(build.LAUNCHES)
+    missing = [c for c in ("blind_rotate1", "blind_rotate2", "trace", "ntt2")
+               if launches.get(c, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded path: {missing}")
+    pv = det.detect(clues)
+    idx, pay = digests(det, pv)
+    if not (torch.equal(pv_s, pv) and torch.equal(idx_s, idx) and torch.equal(pay_s, pay)):
+        raise AssertionError("sharded detect or digests != the single Detector's")
+    say(f"[sharded] {sharded.n_dev} device(s), B={SHARDED_BATCH}: detect, one index "
+        f"digest and {pay.shape[0]} payload digests bit-equal to the single "
+        f"Detector's; launches {launches}")
+
+    def streamed(runner) -> float:
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_REPS):
+            runner.detect(clues)
+        sharded.synchronize()
+        return (time.perf_counter() - t0) / SHARDED_REPS
+
+    plain_a, shard_a = streamed(det), streamed(sharded)
+    shard_b, plain_b = streamed(sharded), streamed(det)
+    plain_s, shard_s = (plain_a + plain_b) / 2, (shard_a + shard_b) / 2
+    say(f"[sharded] warm detect at B={SHARDED_BATCH}, {SHARDED_REPS} calls a "
+        f"synchronisation: plain {plain_s:.5f} s/batch ({plain_a:.5f}, {plain_b:.5f}), "
+        f"sharded {shard_s:.5f} s/batch ({shard_a:.5f}, {shard_b:.5f}), "
+        f"overhead_pct {100 * (shard_s / plain_s - 1):.3f} on {gpu}")
     return launches
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_ranks(gpu):
+    """Phase 8, a process group: one rank per visible card through
+    examples/omr_torch.py with the nccl backend; returns rank 0's kernel
+    launches, its key generation included, as its record counts them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    world = torch.cuda.device_count()
+    coordinator = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "examples", "omr_torch.py"),
+             "-p", str(RANKS_D), "--batch", str(BATCH), "--seed", str(SEED + 30),
+             "--coordinator", coordinator, "--num-processes", str(world),
+             "--process-id", str(rank), "--json", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(world)]
+        logs = []
+        try:
+            for proc in procs:
+                left = max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0))
+                logs.append(proc.communicate(timeout=left)[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"a rank outlived {RANK_TIMEOUT_S} s:\n" + "\n".join(logs))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        codes = [proc.returncode for proc in procs]
+        if any(codes):
+            raise AssertionError(f"ranks exited with {codes}:\n" + "\n".join(logs))
+        with open(out) as fh:
+            art = json.load(fh)
+    wall = time.perf_counter() - t0
+    if not (art["byte_exact"] is True and art["true_subset_of_decoded"] is True
+            and art["device_count"] == world):
+        raise AssertionError(f"rank 0's record: {art}")
+    if art["process_group_backend"] != "nccl":
+        raise AssertionError(f"the ranks' backend is {art['process_group_backend']}")
+    say(f"[ranks] {world} rank(s), backend nccl, D={RANKS_D}: byte_exact, true "
+        f"indices subset of decoded, {art['fp_count']} confirmed FPs; stages "
+        f"{art['stages_s']}; wall with start-up {wall:.3f} s; rank 0's launches "
+        f"by stage {art['kernel_launches']} on {gpu}")
+    launches = Counter()
+    for stage in art["kernel_launches"].values():
+        launches.update(stage)
+    missing = [c for c, *_ in KERNELS if launches[c] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on rank 0's path: {missing}")
+    if art["kernel_launches"]["keygen"].get("ntt1", 0) <= 0:
+        raise AssertionError("the q1 NTT kernel did not launch in rank 0's keygen")
+    return dict(launches)
 
 
 def main() -> int:
@@ -413,7 +558,12 @@ def main() -> int:
     del run, runs, plain, res
     torch.cuda.empty_cache()
 
-    omr_launches = phase_omr(params, gpu)
+    omr_launches, keys = phase_omr(params, gpu)
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(keys, gpu)
+    del keys
+    torch.cuda.empty_cache()
+    ranks_launches = phase_ranks(gpu)
 
     kernels = []
     for counter, jname, source, replaces in KERNELS:
@@ -421,9 +571,13 @@ def main() -> int:
         kernels.append({
             "name": jname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[counter] + omr_launches[counter],
+            "launches": (launches[counter] + omr_launches[counter]
+                         + sharded_launches.get(counter, 0)
+                         + ranks_launches[counter]),
             "launches_by_path": {"omd": launches[counter],
-                                 "omr": omr_launches[counter]},
+                                 "omr": omr_launches[counter],
+                                 "sharded": sharded_launches.get(counter, 0),
+                                 "ranks": ranks_launches[counter]},
             "launches_per_detect": per_detect[counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -1,12 +1,22 @@
 """End-to-end OMR run on the PyTorch / CUDA port: keygen -> clues -> detect
 -> digests -> decode -> verify.
 
-The single-device counterpart of examples/omr.py for ``tfhe_omr_tpu_torch``
-(reference ``omr_core/examples/omr.rs``). Every step runs on ``--device``:
-key generation, clue generation (unless ``--host-clues``), detection into
-one preallocated (D, 2, N2) pertinency stack, both digest encoders and the
+The counterpart of examples/omr.py for ``tfhe_omr_tpu_torch`` (reference
+``omr_core/examples/omr.rs``). Every step runs on ``--device``: key
+generation, clue generation (unless ``--host-clues``), detection into one
+preallocated (D, 2, N2) pertinency stack, both digest encoders and the
 recipient's decrypts. The decode's bucket scan and linear solve run in the
 native C++ library on the host.
+
+``--sharded`` splits every detect batch and both digest encoders over all
+visible cards (``--devices N`` takes the first N; with ``--device cpu`` it
+makes N CPU replicas), with the digests' exact modular reduce. To run one
+process per card or per host, start the SAME command on every rank with
+``--coordinator host0:port --num-processes N --process-id i`` (or under
+``torchrun`` with ``--distributed``, which reads the environment). That
+implies ``--sharded`` and ``--host-clues``, needs ``--seed`` (every rank
+derives the same keys and clues), dispatches the whole board at once
+(``--batch`` is ignored) and lets only rank 0 write ``--csv`` / ``--json``.
 
 Verification (``omr.py``'s, after ``omr_time_analyze.rs:215-235``): the true
 indices are a subset of the decoded ones, every decoded payload equals its
@@ -17,6 +27,9 @@ key). The exit code is 0 only then.
 Usage:
     python examples/omr_torch.py -p 65536 --batch 1024 --json out.json  # on the card
     python examples/omr_torch.py --tiny -p 16 --device cpu              # plain torch
+    python examples/omr_torch.py -p 65536 --sharded                     # every card
+    python examples/omr_torch.py -p 2048 --seed 1 --coordinator 127.0.0.1:29500 \
+        --num-processes 2 --process-id 0     # and the same with --process-id 1
 
 The card is the default; with no card and no ``--device cpu`` the script
 exits non-zero and says so.
@@ -80,12 +93,11 @@ class OmrRun:
 class _Stages:
     """Synchronised wall seconds and kernel launches per stage."""
 
-    def __init__(self, device):
+    def __init__(self, sync):
         from tfhe_omr_tpu_torch.utils import build
-        from tfhe_omr_tpu_torch.utils.timing import synchronize
 
         self._launches = build.LAUNCHES
-        self._sync = lambda: synchronize(device)
+        self._sync = sync
         self.seconds: dict[str, float] = {}
         self.launches: dict[str, dict[str, int]] = {}
 
@@ -116,20 +128,32 @@ def make_keys(params, seed=None, device=None) -> OmrKeys:
 
 def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
               rng: np.random.Generator, batch: int = 1024,
-              host_clues: bool = False) -> OmrRun:
+              host_clues: bool = False, runner=None,
+              profile_dir: str | None = None) -> OmrRun:
     """One board of ``all_count`` messages, ``pertinent_count`` of them the
-    recipient's: clues, detect, digests, decode and verification."""
+    recipient's: clues, detect, digests, decode and verification.
+
+    ``runner`` drives detect and both digest encoders: the pack's
+    ``Detector`` unless a ``ShardedDetector`` is given, whose digests then go
+    through the sharded reduce end to end. Across ranks the whole board is
+    one detect call and the stack stays sharded (``RankRows``).
+    ``profile_dir`` takes a ``torch.profiler`` Chrome trace of the detect
+    stage."""
     import torch
 
     from tfhe_omr_tpu_torch.core.payload import random_payloads
     from tfhe_omr_tpu_torch.core.sender import ClueBatch
-    from tfhe_omr_tpu_torch.utils.timing import TimingRecord
+    from tfhe_omr_tpu_torch.utils.timing import TimingRecord, synchronize
 
     skp, detector = keys.skp, keys.detector
     params = skp.params
     dev = detector.device
-    st = _Stages(dev)
-    rec = TimingRecord(device_count=1, payload_count=all_count)
+    if runner is None:
+        runner = detector
+    across_ranks = getattr(getattr(runner, "mesh", None), "world", 1) > 1
+    st = _Stages(getattr(runner, "synchronize", lambda: synchronize(dev)))
+    rec = TimingRecord(device_count=getattr(runner, "n_dev", 1),
+                       payload_count=all_count)
 
     pertinent = np.zeros(all_count, dtype=bool)
     pertinent[:pertinent_count] = True
@@ -161,25 +185,41 @@ def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
     rec.gen_payloads_time = time.perf_counter() - t0
 
     def detect():
+        if across_ranks:  # one dispatch: each rank keeps its rows
+            return runner.detect(ClueBatch(clue_buf[:, :n_dim], clue_buf[:, n_dim:]))
         pv = torch.empty((all_count, 2, params.n2), dtype=torch.int64, device=dev)
         for s in range(0, all_count, batch):
             e = min(s + batch, all_count)
-            pv[s:e] = detector.detect(
+            pv[s:e] = runner.detect(
                 ClueBatch(clue_buf[s:e, :n_dim], clue_buf[s:e, n_dim:]))
             log.info("  detected %d/%d", e, all_count)
         return pv
 
-    pv = st.run("detect", detect)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            pv = st.run("detect", detect)
+        os.makedirs(profile_dir, exist_ok=True)
+        rank = getattr(getattr(runner, "mesh", None), "rank", 0)
+        trace_path = os.path.join(profile_dir, f"detect_trace_rank{rank}.json")
+        prof.export_chrome_trace(trace_path)
+        log.info("profiler trace of the detect stage written to %s", trace_path)
+    else:
+        pv = st.run("detect", detect)
     log.info("detect: %.3fs (%.1f msg/s)", st.seconds["detect"],
              all_count / st.seconds["detect"])
 
     retriever = skp.generate_retriever(all_count, pertinent_count)
     rp = retriever.params
     index_cts = st.run("encode_indices", lambda: [
-        detector.encode_pertinent_indices(rp, pv, rng)
+        runner.encode_pertinent_indices(rp, pv, rng)
         for _ in range(rp.max_encode_indices_cipher_count)])
     digest_seed = int(rng.integers(0, 2**63))
-    payload_cts = st.run("encode_payloads", detector.encode_pertinent_payloads,
+    payload_cts = st.run("encode_payloads", runner.encode_pertinent_payloads,
                          rp, pv, payloads, digest_seed)
     log.info("encode: indices %.3fs (%d cts), payloads %.3fs (%d cts)",
              st.seconds["encode_indices"], len(index_cts),
@@ -243,6 +283,21 @@ def main():
                     help="numpy seed of keys, clues and digests (fresh if unset)")
     ap.add_argument("--host-clues", action="store_true",
                     help="generate clues with host numpy instead of on the device")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard over all visible cards (or --devices N)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="with --sharded: the first N cards, or N CPU replicas "
+                         "with --device cpu")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the detect "
+                         "stage into this directory")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group named by the environment "
+                         "(RANK, WORLD_SIZE, MASTER_ADDR, as torchrun sets them)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rank 0's address host:port (manual bring-up)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--csv", default=None, help="write a timing record CSV")
     ap.add_argument("--json", default=None,
                     help="write a JSON record (stage walls + verification)")
@@ -257,13 +312,32 @@ def main():
     from tfhe_omr_tpu_torch.utils import build
     from tfhe_omr_tpu_torch.utils.timing import synchronize, write_csv
 
+    from tfhe_omr_tpu_torch.parallel import distributed
+
     params = OmrParameters.tiny() if args.tiny else OmrParameters.default()
     all_count = args.payload_count
     pertinent_count = min(all_count, 8 if args.tiny else 50)
+    multiproc = False
     try:
-        device = build.resolve_device(args.device)
+        if args.distributed or args.coordinator:
+            # --device goes in as given: init picks each rank's card
+            distributed.init(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+            args.sharded = True
+            multiproc = distributed.is_multihost()
+        if distributed.local_devices():
+            device = distributed.local_devices()[0]
+        else:
+            device = build.resolve_device(args.device)
     except RuntimeError as err:  # no card and no --device cpu
         sys.exit(f"omr_torch: {err}")
+    if multiproc:
+        if args.seed is None:
+            sys.exit("omr_torch: --seed is required multi-process: every "
+                     "process must derive identical keys and clue streams")
+        # every rank makes the same clues from the same numpy stream (the
+        # device generators of different cards need not agree)
+        args.host_clues = True
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log.info("device %s (%s), payloads %d, pertinent %d", device, kind,
              all_count, pertinent_count)
@@ -273,13 +347,30 @@ def main():
         log.info("kernels ready in %.1fs", time.perf_counter() - t0)
 
     total0 = time.perf_counter()
+    before_keygen = Counter(build.LAUNCHES)
     keys = make_keys(params, args.seed, device)
     synchronize(device)
+    keygen_launches = dict(Counter(build.LAUNCHES) - before_keygen)
     log.info("keygen: %.3fs; detection key on the device %d bytes",
              time.perf_counter() - total0, keys.detector.detect_key_size())
+    runner = None
+    if args.sharded:
+        from tfhe_omr_tpu_torch.parallel import ShardedDetector, make_data_mesh
+
+        if device.type == "cpu":
+            devices = ["cpu"] * (args.devices or 1)
+        elif distributed.local_devices():
+            devices = None  # the card this rank was given
+        else:
+            devices = [f"cuda:{i}" for i in
+                       range(args.devices or torch.cuda.device_count())]
+        runner = ShardedDetector(keys.detector, make_data_mesh(devices))
+        log.info("sharded over %d devices (%d local, rank %d of %d, process "
+                 "group backend %s)", runner.n_dev, len(runner.replicas),
+                 runner.mesh.rank, runner.mesh.world, distributed.backend())
     rng = np.random.default_rng(None if args.seed is None else args.seed + 2)
     run = run_board(keys, all_count, pertinent_count, rng, args.batch,
-                    args.host_clues)
+                    args.host_clues, runner, args.profile)
     rec = run.rec
     rec.total_time = time.perf_counter() - total0
 
@@ -300,6 +391,8 @@ def main():
                  "FPs). All done in %.1fs", len(run.indices), len(run.extras),
                  rec.total_time)
 
+    if multiproc and runner.mesh.rank != 0:
+        args.csv = args.json = None  # one writer per run
     if args.csv:
         write_csv(args.csv, [rec])
     if args.json:
@@ -321,11 +414,13 @@ def main():
                     "decode": round(rec.decode_time, 3),
                     "total": round(rec.total_time, 3),
                 },
-                "device_count": 1,
+                "device_count": rec.device_count,
+                "process_group_backend": distributed.backend(),
                 "device": kind,
                 "peak_device_memory_bytes": peak,
-                "kernel_launches": run.launches,
+                "kernel_launches": {"keygen": keygen_launches, **run.launches},
             }, fh, indent=1)
+    distributed.shutdown()
     sys.exit(0 if run.ok else 1)
 
 

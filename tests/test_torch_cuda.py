@@ -294,3 +294,113 @@ def test_device_clues_decrypt_to_zero_on_card(cuda):
     clues = skp.generate_sender().gen_clues_device(64, seed=11)
     for i in range(64):
         assert not skp.decrypt_compact_clue(clues.a[i], clues.b7[i]).any(), i
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_kernels_launch_on_their_tensors_card_whatever_is_current(cuda, preset):
+    """K1-K5 == plain with every tensor on the LAST visible card while the
+    current device stays 0: the wrappers select the tensors' card for the
+    launch (kernel attributes, occupancy and the launch itself go to the
+    calling thread's current card otherwise). On a machine with one card the
+    last card is card 0, the guard is a no-op and the test still passes."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    ctx = _ctx(preset, last)
+    gen = torch.Generator(device=last).manual_seed(21)
+    for ntt in (ctx.ntt1, ctx.ntt2):  # K5, K4
+        x = _uniform(gen, ntt.field.q, (37, ntt.n))
+        assert x.device == last
+        assert torch.equal(ntt.fwd_last(x), ntt.fwd_last_plain(x))
+        assert torch.equal(ntt.inv_last(x), ntt.inv_last_plain(x))
+    for level in (1, 2):  # K1, K2
+        key, acc, amounts = _blind_rotate_case(last, preset, level, 5)
+        got = blind_rotate(acc, amounts, key)
+        assert got.device == last
+        assert torch.equal(got, blind_rotate_plain(acc, amounts, key))
+    f = ctx.f2  # K3
+    tk = _uniform(gen, f.q, (len(ctx.trace_autos), ctx.params.n2, ctx.gadget_trace.d, 2))
+    key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, ctx.gadget_trace, ctx.trace_autos)
+    acc = _uniform(gen, f.q, (3, 2, ctx.params.n2))
+    assert torch.equal(trace(acc, key), trace_plain(acc, key))
+    assert torch.cuda.current_device() == 0
+
+
+def test_sharded_detector_on_the_cards_matches_single(cuda):
+    """Detect (ragged) and both digests through a ShardedDetector over every
+    visible card plus card 0 once more (so that a one-card machine still
+    splits the batch over two shards) equal the single Detector's; a replica
+    on another card holds the kernels' key layout, copied as it lies."""
+    from tfhe_omr_tpu_torch.parallel import ShardedDetector, make_data_mesh
+
+    params = OmrParameters.tiny()
+    skp = SecretKeyPack(params, rng=7, ctx=OmrContext(params, cuda))
+    detector = skp.generate_detector()
+    clues = skp.generate_sender().gen_clues(11, np.random.default_rng(9))
+    devices = [*make_data_mesh().devices, torch.device("cuda", 0)]
+    sharded = ShardedDetector(detector, make_data_mesh(devices))
+    assert sharded.n_dev == torch.cuda.device_count() + 1
+    for rep in sharded.replicas:
+        assert rep.br1.on_card and rep.detect_key_size() == detector.detect_key_size()
+    single = detector.detect(clues)
+    build.reset_launches()
+    got = sharded.detect(clues)
+    assert build.LAUNCHES["blind_rotate2"] == sharded.n_dev
+    assert torch.equal(got, single)
+    rp = RetrievalParams.for_params(params, 11, 4)
+    payloads = random_payloads(np.random.default_rng(5), 11, rp.payload_length)
+    assert torch.equal(
+        sharded.encode_pertinent_indices(rp, got, np.random.default_rng(6), chunk=4),
+        detector.encode_pertinent_indices(rp, single, np.random.default_rng(6), chunk=4))
+    assert torch.equal(
+        sharded.encode_pertinent_payloads(rp, got, payloads, 7, chunk=4),
+        detector.encode_pertinent_payloads(rp, single, payloads, 7, chunk=4))
+
+
+_RANK_ON_ITS_CARD = """
+import sys, torch, torch.distributed as dist
+from tfhe_omr_tpu_torch.parallel import distributed, make_data_mesh
+rank = int(sys.argv[2])
+assert distributed.init(sys.argv[1], 2, rank) == 2
+(dev,) = distributed.local_devices()
+assert torch.cuda.current_device() == dev.index
+mesh = make_data_mesh()
+assert (mesh.rank, mesh.world, mesh.n_dev) == (rank, 2, 2), mesh
+cards = torch.zeros(2, dtype=torch.int64, device=dev)
+cards[rank] = dev.index + 1
+dist.all_reduce(cards)  # int64 over NCCL between the two cards
+print("cards", *(cards - 1).tolist())
+distributed.shutdown()
+"""
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: one rank a card over NCCL")
+
+
+def test_two_ranks_take_two_cards_and_reduce_over_nccl(two_cards):
+    """Two processes given only a coordinator and their ranks: each binds a
+    card of its own, the mesh counts both, and an int64 all_reduce passes
+    between the cards."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_ON_ITS_CARD, coordinator, str(rank)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0 and "cards 0 1" in log, "\n".join(logs)

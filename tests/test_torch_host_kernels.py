@@ -10,6 +10,7 @@ barrier of the kernels. All comparisons are exact. What nvcc refuses, and
 every time, shows only on a card (``tests/test_torch_cuda.py``).
 """
 
+import contextlib
 import types
 
 import pytest
@@ -36,6 +37,7 @@ def host(monkeypatch):
     monkeypatch.setattr(build, "device_kind", lambda t: "cuda")
     monkeypatch.setattr(build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(build, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: types.SimpleNamespace(multi_processor_count=SMS))
     before = dict(build.LAUNCHES)

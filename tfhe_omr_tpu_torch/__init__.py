@@ -12,6 +12,8 @@ The layout mirrors the JAX package so each counterpart is easy to find:
   wrappers of the hand-written CUDA kernels in ``csrc/``.
 * :mod:`tfhe_omr_tpu_torch.core`  — parameters, LUTs, key generation, the
   Sender, the Detector (with the digest encoders) and the Retriever.
+* :mod:`tfhe_omr_tpu_torch.parallel` — detection and digests sharded over
+  several cards and over ``torch.distributed`` ranks.
 * :mod:`tfhe_omr_tpu_torch.native` — the client's C++ decoder (g++, ctypes).
 * :mod:`tfhe_omr_tpu_torch.utils` — stage timing and the kernel build.
 

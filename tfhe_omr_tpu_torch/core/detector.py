@@ -50,6 +50,7 @@ from tfhe_omr_tpu_torch.ops.fused import (
     trace,
     trace_plain,
 )
+from tfhe_omr_tpu_torch.utils.build import resolve_device
 from tfhe_omr_tpu_torch.utils.timing import StageTimer, synchronize
 
 
@@ -111,12 +112,29 @@ class Detector:
 
     def __init__(self, detection_key: DetectionKey, ctx: OmrContext,
                  device=None):
-        device = torch.device(device) if device is not None else ctx.device
+        device = resolve_device(device) if device is not None else ctx.device
         if device != ctx.device:
             ctx = OmrContext(ctx.params, device)
         key = DetectionKey(*(t.to(device) for t in detection_key))
+        self._assemble(
+            ctx,
+            BlindRotateKey(key.bsk1, key.bsk1_sh, ctx.ntt1, ctx.gadget_br1,
+                           "blind_rotate1"),
+            BlindRotateKey(key.bsk2, key.bsk2_sh, ctx.ntt2, ctx.gadget_br2,
+                           "blind_rotate2"),
+            TraceKey(key.trace_k, key.trace_k_sh, ctx.ntt2, ctx.gadget_trace,
+                     ctx.trace_autos),
+            key.ksk.to(torch.float64))
+
+    def _assemble(self, ctx: OmrContext, br1: BlindRotateKey,
+                  br2: BlindRotateKey, tr: TraceKey,
+                  ksk_f64: torch.Tensor) -> None:
+        """Every attribute of a detector, from keys that lie on the
+        context's device in the layouts they are held in: the one path by
+        which ``__init__`` and ``to`` fill a detector."""
+        self.br1, self.br2, self.tr, self.ksk_f64 = br1, br2, tr, ksk_f64
         self.ctx = ctx
-        self.device = device
+        device = self.device = ctx.device
         p = ctx.params
         self._c = p.clue_count
         self._n0 = p.clue_params.dimension
@@ -128,16 +146,8 @@ class Detector:
         self.inter_offset = p.clue_count * (
             self.q_inter // p.intermediate_lwe.plain_modulus
         )
-
-        self.br1 = BlindRotateKey(key.bsk1, key.bsk1_sh, ctx.ntt1,
-                                  ctx.gadget_br1, "blind_rotate1")
-        self.br2 = BlindRotateKey(key.bsk2, key.bsk2_sh, ctx.ntt2,
-                                  ctx.gadget_br2, "blind_rotate2")
-        self.tr = TraceKey(key.trace_k, key.trace_k_sh, ctx.ntt2,
-                           ctx.gadget_trace, ctx.trace_autos)
         ks = p.first_level_ks
         self.keyswitch = make_lwe_keyswitch(ctx.f1, ks.digits, ks.out_dimension)
-        self.ksk_f64 = key.ksk.to(torch.float64)
 
         def dev(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
@@ -149,6 +159,21 @@ class Detector:
         self.ex_neg = dev(ex_neg).bool()
         self.n2_inv = ctx.f2.inv(p.n2)
         self.n2_inv_sh = int(ctx.f2.shoup(self.n2_inv))
+
+    def to(self, device) -> "Detector":
+        """A replica of this detector on another device of the same kind
+        (itself when ``device`` is its own): the keys are copied as they
+        lie, in the layouts they are held in (on a card the kernels'), the
+        tables are made anew on ``device``."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        ctx = OmrContext(self.ctx.params, device)
+        other = Detector.__new__(Detector)
+        other._assemble(ctx, self.br1.to(ctx.ntt1), self.br2.to(ctx.ntt2),
+                        self.tr.to(ctx.ntt2, ctx.trace_autos),
+                        self.ksk_f64.to(device))
+        return other
 
     # --------------------------------------------------------------- stages
     def stage1(self, clue_a: torch.Tensor, clue_b7: torch.Tensor,
@@ -311,23 +336,29 @@ class Detector:
         package, so one numpy stream gives both packages the same digest.
         ``plain=True`` runs the plain torch NTT instead of the kernel.
         """
-        rp = retrieval_params
         pert = self._on_device(pertinency)
-        total = pert.shape[0]
-        segs = rp.segment_per_cipher
-        buckets = rng.integers(
-            0, rp.bucket_count_per_segment, size=(total, segs), dtype=np.int64,
-        )
-        base_addr = self._on_device(
-            np.arange(segs, dtype=np.int64)[None, :] * rp.slots_per_segment
-            + buckets * rp.slots_per_bucket
-        )
-        idx = torch.arange(total, dtype=torch.int64, device=self.device)
+        base_addr = draw_index_buckets(retrieval_params, pert.shape[0], rng)
+        return self.encode_index_rows(retrieval_params, pert, base_addr, 0,
+                                      chunk, plain)
+
+    def encode_index_rows(self, retrieval_params: RetrievalParams, pert,
+                          base_addr: np.ndarray, lo: int, chunk: int = 2048,
+                          plain: bool = False) -> torch.Tensor:
+        """The part of an index digest that the messages ``lo ..
+        lo + len(pert)`` of a board contribute: ``pert`` holds their
+        pertinency cts, ``base_addr`` their rows of
+        :func:`draw_index_buckets`. The parts of disjoint row ranges add up
+        (mod q2) to the digest of the whole board."""
+        rp = retrieval_params
+        pert = self._on_device(pert)
+        rows = pert.shape[0]
+        base_addr = self._on_device(base_addr)
+        idx = torch.arange(lo, lo + rows, dtype=torch.int64, device=self.device)
         acc = torch.zeros((2, rp.polynomial_size), dtype=torch.int64,
                           device=self.device)
         fwd = self._fwd(plain)
-        for s in range(0, total, chunk):
-            e = min(s + chunk, total)
+        for s in range(0, rows, chunk):
+            e = min(s + chunk, rows)
             poly = index_poly_device(
                 base_addr[s:e], idx[s:e], rp.index_slots_per_bucket,
                 rp.polynomial_size, rp.index_modulus, self.ctx.f2.q,
@@ -381,17 +412,30 @@ class Detector:
         payloads and weights go to the device once; ``plain=True`` runs the
         plain torch NTT instead of the kernel.
         """
-        rp = retrieval_params
         pert = self._on_device(pertinency)
-        total = pert.shape[0]
-        kct, cmb = rp.cmb_cipher_count, rp.cmb_count_per_cipher
-        weights = self._on_device(sample_weights(rp, seed).reshape(kct, cmb, -1))
+        weights = payload_weights(retrieval_params, seed, pert.shape[0])
+        return self.encode_payload_rows(retrieval_params, pert, payloads,
+                                        weights, chunk, plain)
+
+    def encode_payload_rows(self, retrieval_params: RetrievalParams, pert,
+                            payloads: np.ndarray, weights: np.ndarray,
+                            chunk: int = 2048, plain: bool = False) -> torch.Tensor:
+        """The part of the payload digests that some messages of a board
+        contribute: ``pert`` (rows, 2, N2), ``payloads`` (rows, plen) and
+        ``weights`` (kct, cmb, rows) hold those messages' pertinency cts,
+        payloads and columns of :func:`payload_weights`. The parts of
+        disjoint row ranges add up (mod q2) to the whole board's digests."""
+        rp = retrieval_params
+        pert = self._on_device(pert)
+        rows = pert.shape[0]
+        weights = self._on_device(weights)
         pay = self._on_device(np.asarray(payloads, dtype=np.int64))
+        kct = rp.cmb_cipher_count
         accs = torch.zeros((kct, 2, rp.polynomial_size), dtype=torch.int64,
                            device=self.device)
         fwd = self._fwd(plain)
-        for s in range(0, total, chunk):
-            e = min(s + chunk, total)
+        for s in range(0, rows, chunk):
+            e = min(s + chunk, rows)
             for k in range(kct):
                 poly = payload_plain_device(
                     pay[s:e], weights[k, :, s:e], rp.polynomial_size,
@@ -399,6 +443,28 @@ class Detector:
                 )
                 accs[k] = self._encode_chunk(pert[s:e], poly, accs[k], fwd)
         return accs
+
+
+def draw_index_buckets(rp: RetrievalParams, total: int,
+                       rng: np.random.Generator) -> np.ndarray:
+    """One index digest's bucket draws for a board of ``total`` messages,
+    all in one ``rng.integers`` call (the stream of the JAX package, whatever
+    way the board is split afterwards) -> (total, segs) first slot of each
+    message's bucket in every segment."""
+    segs = rp.segment_per_cipher
+    buckets = rng.integers(
+        0, rp.bucket_count_per_segment, size=(total, segs), dtype=np.int64,
+    )
+    return (np.arange(segs, dtype=np.int64)[None, :] * rp.slots_per_segment
+            + buckets * rp.slots_per_bucket)
+
+
+def payload_weights(rp: RetrievalParams, seed, total: int) -> np.ndarray:
+    """The shared weight stream, drawn once for the layout's whole board,
+    as (cmb_cipher_count, cmb_count_per_cipher, total): a board shorter than
+    the layout's uses the first ``total`` columns."""
+    return sample_weights(rp, seed).reshape(
+        rp.cmb_cipher_count, rp.cmb_count_per_cipher, -1)[:, :, :total]
 
 
 def sample_weights(rp: RetrievalParams, seed) -> np.ndarray:

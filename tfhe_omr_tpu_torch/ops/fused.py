@@ -23,6 +23,7 @@ kernel come from the built library (:func:`br_layout`, :func:`tr_layout`).
 
 from __future__ import annotations
 
+import copy
 import ctypes
 from dataclasses import dataclass
 
@@ -113,6 +114,26 @@ def reference_key_layout(k: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return ref.reshape(3 * n_steps, n, jp * dj, 2, 2).to(torch.int64)
 
 
+def _key_on(key, ntt: Ntt, plain, tensors: tuple[str, ...]):
+    """A copy of a key object on the device of ``ntt`` (the same ring's NTT
+    of another context): what the key holds is copied as it lies, in its
+    layout, so nothing is gathered back and no companion is recomputed.
+    Only between devices of one kind: the CPU and a card hold different
+    layouts."""
+    dev = ntt.device
+    if dev.type != key.keys[0].device.type:
+        raise ValueError(f"{key.name}: the key lies on {key.keys[0].device} in that "
+                         f"device kind's layout; it cannot be copied to {dev}")
+    other = copy.copy(key)
+    other.ntt = ntt
+    other.plain = plain
+    other.keys = tuple(k.to(dev) for k in key.keys)
+    if key.on_card:
+        for name in tensors:
+            setattr(other, name, getattr(key, name).to(dev))
+    return other
+
+
 class BlindRotateKey:
     """A paired bootstrapping key for :func:`blind_rotate`.
 
@@ -143,6 +164,12 @@ class BlindRotateKey:
             self.mono = ntt.mono.to(lay.dtype)
             self.orders = ntt.base_orders_t.to(torch.int32)
             self.n_inv = ntt.n_inv
+
+    def to(self, ntt: Ntt) -> "BlindRotateKey":
+        """This key for another device: ``ntt`` is that device's NTT of the
+        same ring (:func:`_key_on`)."""
+        return _key_on(self, ntt, make_blind_rotate(ntt.field, ntt, self.gadget),
+                       ("tw_fwd", "tw_inv", "mono", "orders"))
 
     def reference(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(bsk, bsk_sh) in the reference layout and slot order, int64."""
@@ -185,13 +212,14 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     if n_msgs == 0:
         return out
     lib = build.library()
-    rc = lib.omr_blind_rotate(
-        build.ptr(acc), build.ptr(out), build.ptr(amounts), n_msgs,
-        key.n_steps, build.ptr(key.keys[0]), build.ptr(key.mono),
-        build.ptr(key.orders), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
-        key.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
-        n_blocks(n_msgs, key.layout.s), build.stream_of(acc),
-    )
+    with torch.cuda.device(acc.device):
+        rc = lib.omr_blind_rotate(
+            build.ptr(acc), build.ptr(out), build.ptr(amounts), n_msgs,
+            key.n_steps, build.ptr(key.keys[0]), build.ptr(key.mono),
+            build.ptr(key.orders), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
+            key.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
+            n_blocks(n_msgs, key.layout.s), build.stream_of(acc),
+        )
     build.check(lib, rc, key.name)
     build.LAUNCHES[key.name] += 1
     return out
@@ -245,6 +273,12 @@ class TraceKey:
             self.ginv = torch.tensor(auto_multipliers(autos, ntt.n),
                                      dtype=torch.int32, device=trace_k.device)
 
+    def to(self, ntt: Ntt, autos) -> "TraceKey":
+        """This key for another device: ``ntt`` and ``autos`` are that
+        device's context's (:func:`_key_on`)."""
+        return _key_on(self, ntt, make_trace(ntt.field, ntt, self.gadget, autos),
+                       ("tw_fwd", "tw_inv", "ginv"))
+
     def reference(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(trace_k, trace_k_sh) in the reference layout and slot order."""
         if not self.on_card:
@@ -281,12 +315,13 @@ def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
     if n_msgs == 0:
         return out
     lib = build.library()
-    rc = lib.omr_trace(
-        build.ptr(acc), build.ptr(out), n_msgs, key.rounds, build.ptr(key.ginv),
-        build.ptr(key.keys[0]), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
-        ntt.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
-        build.stream_of(acc),
-    )
+    with torch.cuda.device(acc.device):
+        rc = lib.omr_trace(
+            build.ptr(acc), build.ptr(out), n_msgs, key.rounds, build.ptr(key.ginv),
+            build.ptr(key.keys[0]), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
+            ntt.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
+            build.stream_of(acc),
+        )
     build.check(lib, rc, key.name)
     build.LAUNCHES[key.name] += 1
     return out

@@ -352,7 +352,10 @@ class Ntt:
         raise. The ``NttConfig`` typedefs of ``csrc/ntt.cu`` are the only
         table of these constants; this asks the built library for them."""
         out = (ctypes.c_int * 5)()
-        if build.library().omr_ntt_config(self.log_n, self.field.q, out):
+        lib = build.library()
+        with torch.cuda.device(self.device):  # the occupancy is the card's
+            rc = lib.omr_ntt_config(self.log_n, self.field.q, out)
+        if rc:
             raise ValueError("no NTT kernel is instantiated for (log N, q) = "
                              f"{(self.log_n, self.field.q)}")
         rows, rlog, word_bytes, tw, blocks_per_sm = out
@@ -391,11 +394,12 @@ class Ntt:
         # a block outlives its rows: no more blocks than the card holds
         groups = -(-rows.shape[0] // lay.rows)
         lib = build.library()
-        rc = lib.omr_ntt(
-            build.ptr(rows), build.ptr(out), rows.shape[0], build.ptr(tw),
-            build.ptr(perm), self.n_inv, n_inv_sh, self.log_n, self.field.q,
-            int(inverse), min(groups, resident), build.stream_of(rows),
-        )
+        with torch.cuda.device(rows.device):
+            rc = lib.omr_ntt(
+                build.ptr(rows), build.ptr(out), rows.shape[0], build.ptr(tw),
+                build.ptr(perm), self.n_inv, n_inv_sh, self.log_n, self.field.q,
+                int(inverse), min(groups, resident), build.stream_of(rows),
+            )
         build.check(lib, rc, self.name)
         build.LAUNCHES[self.name] += 1
         return out.reshape(x.shape)

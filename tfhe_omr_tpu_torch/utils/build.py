@@ -75,13 +75,17 @@ def device_kind(t: torch.Tensor) -> str:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
     another. With no card and no explicit ``device="cpu"`` this raises; it
-    never falls back to the host."""
+    never falls back to the host. A card comes back with its index spelled
+    out (``cuda`` is the card that is current now), so that what is built on
+    it later lands on the same card whatever card is current then."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available (torch.cuda.is_available() is false); "
             'pass device="cpu" (--device cpu) to run the plain torch path on '
             "the host")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -50,8 +50,24 @@ Phases (each prints its result; any failure exits non-zero):
      byte_exact and true_subset_of_decoded and count a launch of every
      kernel, the q1 NTT in its key generation, and a rank that fails or
      outlives its time limit fails the script.
+  9. the unit-rate probes (csrc/probes.cu, the twins of the TPU probes of
+     benches/): probe_chain for every op, type and stream count, probe_mac
+     and probe_i8dot (mma.sync s8) at the probes' shapes, one of them with
+     int32 sums that wrap, each bit-equal to its plain version at small
+     loop counts; then, with the launch counts set to 0, one short timed
+     run of each (the int32 multiply chains and the MAC at (256, 1024) with
+     4 and 16 streams, mulhi, int64 multiply, float32 FMA, the int8 dot at
+     (256, 384, 96, 128)), every rate beside its unit's spec rate at the
+     card's top SM clock and each run's bound, the least time at the spec
+     rates of its least instruction mix (tfhe_omr_tpu_torch/utils/rates.py:
+     int32 multiplies 64 and int32 instructions 128 a clock an SM); the
+     measured int32 multiply peak against the
+     1.675e13 that ``bound`` assumes, and K1-K5's bound at the measured
+     int32 multiply rate and, if every multiply took as long as a high
+     word (__mulhi), at that rate.
 The line before the last is a JSON record of the kernels (``launches``:
-phases 4+5, 7 and 8 together, ``launches_by_path`` each (the ranks of phase
+phases 4+5, 7 and 8 together for K1-K5, phase 9's timed runs for the probes,
+``launches_by_path`` each (the ranks of phase
 8 are processes of their own: ``ranks`` is what rank 0's record counts),
 ``launches_per_detect`` one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
 ``ms_main_path`` and ``bound_ms`` at the main path's); the last line is
@@ -80,7 +96,6 @@ SUB = 32  # messages in the kernel-vs-plain comparisons of the long chains
 RAGGED = (1, 5)  # batches that fill no whole block, on RAGGED_STEPS steps
 RAGGED_STEPS = 4
 NTT_RAGGED_ROWS = (1, 37)  # row counts that fill no whole group of a block
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_MULS_PER_S = 67e12 / 4  # int32 multiply-adds: half the float32 lanes
 # phase 7: D = 8192 has the digest layout of D = 65536 at these parameters
 # (2 index digits per bucket, 5 segments and 5 index cts, 55 combinations
@@ -94,6 +109,21 @@ SHARDED_REPS = 3
 RANKS_D = 2048
 RANK_TIMEOUT_S = 420
 
+# phase 9: the probes' compared loop counts, the timed runs' shape and work
+PROBE_SHAPE = (256, 1024)
+PROBE_CMP_ITERS = 9
+PROBE_FMA_CMP_ITERS = 3  # every float64 sum exact: the plain fmaf emulation holds
+PROBE_TARGET_OPS = 4e10  # operations of one timed chain or MAC call
+PROBE_FMA_ITERS = 8192
+# (g, m, k, n, rounds): P2, P5, P7 and P9's shapes with few rounds, and
+# the 2-D dot of P7 whose int32 sums wrap at its own rounds
+PROBE_DOTS = [
+    (1, 2048, 2048, 256, 1), (1, 128, 12, 256, 2), (1, 128, 128, 256, 2),
+    (2048, 48, 12, 128, 2), (256, 384, 96, 128, 2), (128, 768, 192, 128, 2),
+    (1, 384, 96, 128, 2), (1, 768, 192, 128, 2), (1, 384, 768, 128, 8192),
+]
+PROBE_DOT_MAIN = (256, 384, 96, 128, 512)
+
 # (counter name, JSON name, source, the TPU kernel it replaces)
 KERNELS = [
     ("ntt1", "ntt_q1", "tfhe_omr_tpu_torch/csrc/ntt.cu",
@@ -106,6 +136,16 @@ KERNELS = [
      "tfhe_omr_tpu/ops/pallas_fused.py:1218"),
     ("trace", "trace", "tfhe_omr_tpu_torch/csrc/trace.cu",
      "tfhe_omr_tpu/ops/pallas_fused.py:1765"),
+]
+PROBE_KERNELS = [
+    ("probe_chain", "probe_chain", "tfhe_omr_tpu_torch/csrc/probes.cu",
+     "benches/vpu_probe.py:42, benches/vpu_peak_probe.py:38, benches/mac_probe.py:112, "
+     "benches/mosaic_unsupported_probe.py:69"),
+    ("probe_mac", "probe_mac", "tfhe_omr_tpu_torch/csrc/probes.cu",
+     "benches/vpu_peak_probe.py:80"),
+    ("probe_i8dot", "probe_i8dot", "tfhe_omr_tpu_torch/csrc/probes.cu",
+     "benches/vpu_probe.py:76, benches/mac_probe.py:62, benches/mac_probe.py:146, "
+     "benches/mosaic_unsupported_probe.py:161"),
 ]
 
 
@@ -121,20 +161,10 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` back-to-back calls."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def compare(name, kernel_fn, plain_fn, reps, shape):
     """Kernel vs plain on the same inputs: bit-equality and both times."""
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
+
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -142,8 +172,8 @@ def compare(name, kernel_fn, plain_fn, reps, shape):
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain, max |diff| {err}, "
                              f"{int((got != want).sum())} entries")
-    ms = cuda_ms(kernel_fn, reps)
-    plain_ms = cuda_ms(plain_fn, 1)
+    ms = median_ms(kernel_fn, "cuda", reps, warm=False)
+    plain_ms = median_ms(plain_fn, "cuda", 1, warm=False)
     say(f"[compare] {name} {shape}: bit-equal (max_abs_err {err}), "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
@@ -159,12 +189,11 @@ def bound(n_bytes: int, shoup_products: int, summed_products: int, field) -> dic
     product (a twiddle, the 1/N scale) is 3 multiplies in 32-bit words and
     10 in 64-bit ones; a product summed in double width with others before
     one reduction is 1 and 4."""
+    from tfhe_omr_tpu_torch.utils import rates
+
     per_shoup, per_summed = (3, 1) if field.bits <= 31 else (10, 4)
     muls = shoup_products * per_shoup + summed_products * per_summed
-    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * muls / INT32_MULS_PER_S
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+    return {**rates.bound({"int32_mul": muls}, {"int32_mul": INT32_MULS_PER_S}, n_bytes),
             "bound_unit": "int32 multiplies", "bound_bytes": n_bytes,
             "bound_products": shoup_products + summed_products,
             "bound_multiplies": muls, "library_ms": None}
@@ -194,6 +223,7 @@ def phase_compare(ctx):
         BlindRotateKey, TraceKey, blind_rotate, blind_rotate_plain, trace,
         trace_plain,
     )
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
 
     p = ctx.params
     dev = ctx.device
@@ -251,8 +281,7 @@ def phase_compare(ctx):
         say(f"[compare] {jname}: bit-equal at ragged batches {RAGGED} "
             f"({RAGGED_STEPS} steps, {key.layout.s} samples a block)")
         del bsk, short
-        blind_rotate(acc, amounts, key)
-        ms = cuda_ms(lambda: blind_rotate(acc, amounts, key), 3)
+        ms = median_ms(lambda: blind_rotate(acc, amounts, key), dev, 3)
         shoup, summed = (m_main * (n_lwe // 2) * c
                          for c in blind_rotate_products(ntt.n, g.d))
         res[jname].update(
@@ -280,8 +309,7 @@ def phase_compare(ctx):
             raise AssertionError(f"trace: kernel != plain at {mr} messages")
     say(f"[compare] trace: bit-equal at ragged batches {RAGGED} "
         f"({key.layout.s} messages a block)")
-    trace(acc, key)
-    ms = cuda_ms(lambda: trace(acc, key), 5)
+    ms = median_ms(lambda: trace(acc, key), dev, 5)
     # per message and round: d forward NTTs and two inverse NTTs with the
     # 1/N scale (Shoup products), d x 2 x N products against the key (summed)
     shoup = BATCH * rounds * (g.d * ntt_products(p.n2) + 2 * (ntt_products(p.n2) + p.n2))
@@ -397,7 +425,11 @@ def phase_sharded(keys, gpu):
         raise AssertionError(f"kernels never launched on the sharded path: {missing}")
     pv = det.detect(clues)
     idx, pay = digests(det, pv)
-    if not (torch.equal(pv_s, pv) and torch.equal(idx_s, idx) and torch.equal(pay_s, pay)):
+    if len(pv_s.parts) != len(sharded.replicas) or any(
+            part.device != rep.device for part, rep in zip(pv_s.parts, sharded.replicas)):
+        raise AssertionError("a shard's rows do not lie on its replica's card")
+    if not (np.array_equal(sharded.gather(pv_s), pv.cpu().numpy())
+            and torch.equal(idx_s, idx) and torch.equal(pay_s, pay)):
         raise AssertionError("sharded detect or digests != the single Detector's")
     say(f"[sharded] {sharded.n_dev} device(s), B={SHARDED_BATCH}: detect, one index "
         f"digest and {pay.shape[0]} payload digests bit-equal to the single "
@@ -418,6 +450,178 @@ def phase_sharded(keys, gpu):
         f"sharded {shard_s:.5f} s/batch ({shard_a:.5f}, {shard_b:.5f}), "
         f"overhead_pct {100 * (shard_s / plain_s - 1):.3f} on {gpu}")
     return launches
+
+
+def phase_probes(gpu, results):
+    """Phase 9: the probe kernels against their plain versions, then one
+    short timed run of each with the launch counts set to 0 just before;
+    returns those runs' launches and each kernel's record."""
+    from tfhe_omr_tpu_torch.ops import probes
+    from tfhe_omr_tpu_torch.utils import build, rates
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    x = torch.randint(1, 1 << 20, PROBE_SHAPE, generator=gen, device=dev, dtype=torch.int32)
+    y = torch.randint(1, 1 << 10, PROBE_SHAPE, generator=gen, device=dev, dtype=torch.int32)
+    xf = torch.rand(PROBE_SHAPE, generator=gen, device=dev) * 0.5 + 0.5
+    yf = torch.rand(PROBE_SHAPE, generator=gen, device=dev) * 0.2 + 0.9
+    operands = {torch.int32: (x, y), torch.int64: (x.long(), y.long()),
+                torch.float32: (xf, yf)}
+    rec = {}
+
+    def held(name, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel != plain, "
+                                 f"{int((got != want).sum())} entries differ")
+        return float((got.double() - want.double()).abs().max())
+
+    def kernel_and_plain(kernel_fn, plain_fn):
+        return {"ms": median_ms(kernel_fn, dev, 5, warm=False),
+                "plain_ms": median_ms(plain_fn, dev, 1, warm=False)}
+
+    errs = []
+    for dtype, ops in probes.CHAIN_DTYPES.items():
+        a, b = operands[dtype]
+        iters = PROBE_FMA_CMP_ITERS if dtype == torch.float32 else PROBE_CMP_ITERS
+        for op in ops:
+            for streams in probes.STREAMS:
+                errs.append(held(f"probe_chain {op} {dtype} s{streams}",
+                                 probes.probe_chain(a, b, op, iters, streams),
+                                 probes.probe_chain_plain(a, b, op, iters, streams)))
+    say(f"[probes] probe_chain bit-equal to plain: every op and type at {PROBE_SHAPE}, "
+        f"streams {probes.STREAMS}, {PROBE_CMP_ITERS} iterations (fma {PROBE_FMA_CMP_ITERS})")
+    rec["probe_chain"] = {"max_abs_err": max(errs), **kernel_and_plain(
+        lambda: probes.probe_chain(x, y, "mul_add", PROBE_CMP_ITERS, 4),
+        lambda: probes.probe_chain_plain(x, y, "mul_add", PROBE_CMP_ITERS, 4))}
+    errs = [held(f"probe_mac s{streams}", probes.probe_mac(x, y, PROBE_CMP_ITERS, streams),
+                 probes.probe_mac_plain(x, y, PROBE_CMP_ITERS, streams))
+            for streams in probes.STREAMS]
+    say(f"[probes] probe_mac bit-equal to plain at {PROBE_SHAPE}, streams {probes.STREAMS}")
+    rec["probe_mac"] = {"max_abs_err": max(errs), **kernel_and_plain(
+        lambda: probes.probe_mac(x, y, PROBE_CMP_ITERS, 4),
+        lambda: probes.probe_mac_plain(x, y, PROBE_CMP_ITERS, 4))}
+    errs = []
+    for g, m, k, n, rounds in PROBE_DOTS:
+        lo = 64 if rounds > 1000 else -128  # positive operands: the sums wrap
+        a = torch.randint(lo, 128, (g, m, k), generator=gen, device=dev).to(torch.int8)
+        b = torch.randint(lo, 128, (g, k, n), generator=gen, device=dev).to(torch.int8)
+        want = probes.probe_i8dot_plain(a, b, rounds)
+        if lo > 0 and not bool((want.long() != rounds * torch.matmul(
+                a.double(), b.double()).long()).all()):
+            raise AssertionError("the wrapping case does not wrap")
+        errs.append(held(f"probe_i8dot {(g, m, k, n)} x{rounds}",
+                         probes.probe_i8dot(a, b, rounds), want))
+    say(f"[probes] probe_i8dot (mma.sync s8) bit-equal to plain at {len(PROBE_DOTS)} "
+        "shapes (g, m, k, n, rounds): " + ", ".join(str(d) for d in PROBE_DOTS)
+        + "; the last one's int32 sums wrap")
+    g, m, k, n, _ = PROBE_DOT_MAIN
+    a = torch.randint(-64, 64, (g, m, k), generator=gen, device=dev).to(torch.int8)
+    b = torch.randint(-64, 64, (g, k, n), generator=gen, device=dev).to(torch.int8)
+    rec["probe_i8dot"] = {"max_abs_err": max(errs), **kernel_and_plain(
+        lambda: probes.probe_i8dot(a, b, 2), lambda: probes.probe_i8dot_plain(a, b, 2))}
+
+    spec = rates.spec_rates(dev)
+    spec_ops = spec["ops_per_s"]
+    say(f"[probes] spec rates at clocks.max.sm {spec['clock_max_sm_mhz']} MHz x "
+        f"{spec['sms']} SMs: int32 instructions {spec_ops['int32']:.4e} /s, of them "
+        f"multiplies {spec_ops['int32_mul']:.4e} /s, f32 FMA {spec_ops['f32_fma']:.4e} "
+        f"/s, int8 mma {spec_ops['int8_mma']:.4e} op/s on {gpu}")
+    elems = x.numel()
+    af, bf = a.float(), b.float()
+    rounds = PROBE_DOT_MAIN[4]
+
+    def chain_iters(streams):
+        return int(PROBE_TARGET_OPS / (2 * streams * elems))
+
+    # (label, kernel, fn, operations as the TPU probes count them, the
+    # unit they are read against, the run's least work by unit
+    # (rates.STEP_WORK), bytes read and written)
+    runs = []
+    for op in ("mul", "mul_add"):
+        for streams in (4, 16):
+            it = chain_iters(streams)
+            runs.append((f"i32_{op}_s{streams}", "probe_chain",
+                         lambda op=op, s=streams, it=it: probes.probe_chain(x, y, op, it, s),
+                         2 * it * streams * elems, "int32_mul",
+                         rates.step_work(torch.int32, op, it * streams * elems), 3 * nbytes(x)))
+    for streams in (4, 16):
+        it = int(PROBE_TARGET_OPS / (3 * streams * elems))
+        runs.append((f"mac_s{streams}", "probe_mac",
+                     lambda s=streams, it=it: probes.probe_mac(x, y, it, s),
+                     3 * it * streams * elems, "int32_mul",
+                     rates.step_work(torch.int32, "mac", it * streams * elems), 3 * nbytes(x)))
+    for streams in (4, 16):
+        it = chain_iters(streams)
+        runs.append((f"mulhi_s{streams}", "probe_chain",
+                     lambda s=streams, it=it: probes.probe_chain(x, y, "mulhi_add", it, s),
+                     2 * it * streams * elems, "int32_mul",
+                     rates.step_work(torch.int32, "mulhi_add", it * streams * elems),
+                     3 * nbytes(x)))
+    x64, y64 = operands[torch.int64]
+    it = chain_iters(4) // 4
+    runs.append(("i64_mul_s4", "probe_chain",
+                 lambda: probes.probe_chain(x64, y64, "mul_add", it, 4),
+                 2 * it * 4 * elems, "int32_mul",
+                 rates.step_work(torch.int64, "mul_add", it * 4 * elems), 3 * nbytes(x64)))
+    runs.append(("f32_fma_s4", "probe_chain",
+                 lambda: probes.probe_chain(xf, yf, "fma", PROBE_FMA_ITERS, 4),
+                 2 * PROBE_FMA_ITERS * 4 * elems, "f32_fma",
+                 rates.step_work(torch.float32, "fma", PROBE_FMA_ITERS * 4 * elems),
+                 3 * nbytes(xf)))
+    runs.append((f"i8dot_{g}x{m}x{k}x{n}_r{rounds}", "probe_i8dot",
+                 lambda: probes.probe_i8dot(a, b, rounds), 2 * g * m * k * n * rounds,
+                 "int8_mma", rates.dot_work(g, m, k, n, rounds), nbytes(a, b) + 4 * g * m * n))
+
+    build.reset_launches()
+    measured = {}
+    for label, kernel, fn, counted, unit, work, n_bytes in runs:
+        ms = median_ms(fn, dev)
+        rate = counted / (ms * 1e-3)
+        measured[label] = {"kernel": kernel, "ms": ms, "rate": rate, "unit": unit,
+                           **rates.bound(work, spec_ops, n_bytes)}
+        say(f"[probes] {label}: {ms:.4f} ms, {rate / 1e9:.3f} Gops/s counted beside the "
+            f"{unit} spec {spec_ops[unit] / 1e9:.3f}; bound {measured[label]['bound_ms']:.4f}"
+            f" ms ({measured[label]['bound_by']}), {measured[label]['bound_ms'] / ms:.4f} "
+            "of it reached")
+    launches = dict(build.LAUNCHES)
+    missing = [c for c, *_ in PROBE_KERNELS if launches.get(c, 0) <= 0]
+    if missing:
+        raise AssertionError(f"probe kernels never launched in the timed runs: {missing}")
+    lib_ms = median_ms(lambda: rates.library_i8dot(af, bf, rounds), dev)
+    say(f"[probes] library: {rounds} float32 torch.bmm into an int32 total at "
+        f"{(g, m, k, n)}: {lib_ms:.4f} ms; launches {launches}")
+
+    # multiplies a second: every op of the i32 mul chain is one; the mulhi
+    # chain's ops are one high word and one add
+    int32_mul = max(r["rate"] for lbl, r in measured.items() if lbl.startswith("i32_mul_s"))
+    mulhi = max(r["rate"] for lbl, r in measured.items() if lbl.startswith("mulhi_")) / 2
+    say(f"[probes] measured int32 multiply peak {int32_mul:.4e} /s, high-word multiplies "
+        f"(__mulhi) {mulhi:.4e} /s, against the {INT32_MULS_PER_S:.4e} that bound() assumes "
+        f"({int32_mul / INT32_MULS_PER_S:.4f} x, {mulhi / INT32_MULS_PER_S:.4f} x)")
+    for _c, jname, *_ in KERNELS:
+        r = results[jname]
+        work = {"int32_mul": r["bound_multiplies"]}
+        r["bound_ms_at_measured_int32_mul"] = rates.bound(
+            work, {"int32_mul": int32_mul}, r["bound_bytes"])["bound_ms"]
+        r["bound_ms_at_measured_mulhi"] = rates.bound(
+            work, {"int32_mul": mulhi}, r["bound_bytes"])["bound_ms"]
+        say(f"[probes] {jname}: bound {r['bound_ms']:.4f} ms at 1.675e13, "
+            f"{r['bound_ms_at_measured_int32_mul']:.4f} ms at the measured int32 multiply "
+            f"rate, {r['bound_ms_at_measured_mulhi']:.4f} ms if every multiply took the "
+            f"high word's; kernel {r['ms_main_path']:.4f} ms")
+
+    main_label = {"probe_chain": "i32_mul_s16", "probe_mac": "mac_s16",
+                  "probe_i8dot": f"i8dot_{g}x{m}x{k}x{n}_r{rounds}"}
+    for kernel, r in rec.items():
+        run = measured[main_label[kernel]]
+        r.update(ms_main_path=run["ms"], main_path_shape=main_label[kernel],
+                 bound_ms=run["bound_ms"], bound_by=run["bound_by"],
+                 bound_unit=run["bound_unit"], rate_per_s=run["rate"],
+                 spec_per_s=spec_ops[run["unit"]],
+                 library_ms=lib_ms if kernel == "probe_i8dot" else None)
+    return launches, rec
 
 
 def free_port() -> int:
@@ -490,8 +694,8 @@ def main() -> int:
         return 1
     # the port itself: absent when this script stands alone, which fails here
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "examples"))
+    for sub in ("examples", "benches"):
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), sub))
     from omd_torch import run_omd
     from tfhe_omr_tpu_torch.core.context import OmrContext
     from tfhe_omr_tpu_torch.core.params import OmrParameters
@@ -564,6 +768,9 @@ def main() -> int:
     del keys
     torch.cuda.empty_cache()
     ranks_launches = phase_ranks(gpu)
+    t0 = time.perf_counter()
+    probe_launches, probe_results = phase_probes(gpu, results)
+    say(f"[probes] phase 9 took {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for counter, jname, source, replaces in KERNELS:
@@ -587,6 +794,19 @@ def main() -> int:
                                  "library_ms")},
             **({"inv_ms": r["inv_ms"], "plain_inv_ms": r["plain_inv_ms"]}
                if "inv_ms" in r else {}),
+            "bound_ms_at_measured_int32_mul": r["bound_ms_at_measured_int32_mul"],
+            "bound_ms_at_measured_mulhi": r["bound_ms_at_measured_mulhi"],
+        })
+    for counter, jname, source, replaces in PROBE_KERNELS:
+        r = probe_results[jname]
+        kernels.append({
+            "name": jname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": probe_launches[counter],
+            "launches_by_path": {"probes": probe_launches[counter]},
+            "launches_per_detect": 0,
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "ms_main_path",
+                                 "main_path_shape", "bound_ms", "bound_by", "bound_unit",
+                                 "rate_per_s", "spec_per_s", "library_ms")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

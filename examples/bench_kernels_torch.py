@@ -32,20 +32,6 @@ import sys
 import torch
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` back-to-back calls, warm."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def held(name: str, what: str, got, want) -> None:
     same = torch.equal(got, want)
     print(f"{name}: {what} {'bit-equal to' if same else 'DIFFER from'} plain",
@@ -57,6 +43,7 @@ def held(name: str, what: str, got, want) -> None:
 def sweep_grid(ntt, x, reps: int, gpu: str) -> None:
     """The forward kernel alone on ``x`` over several grids."""
     from tfhe_omr_tpu_torch.utils import build
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
 
     lay, tables, n_inv_sh, resident = ntt.row_kernel_tables
     tw, perm = tables[0]
@@ -73,12 +60,12 @@ def sweep_grid(ntt, x, reps: int, gpu: str) -> None:
                              build.ptr(perm), ntt.n_inv, n_inv_sh, ntt.log_n,
                              ntt.field.q, 0, blocks, build.stream_of(x))
             build.check(lib, rc, ntt.name)
-        ms = cuda_ms(launch, reps)
+        ms = median_ms(launch, "cuda", reps)
         if not torch.equal(out, want):
             sys.exit(f"{ntt.name}: grid of {blocks} blocks DIFFERS")
         print(f"{ntt.name}: {rows} rows, kernel alone, {blocks} blocks of {groups} "
               f"row groups ({lay.blocks_per_sm} resident an SM): forward {ms:.4f} ms "
-              f"(mean of {reps}), on {gpu}", flush=True)
+              f"(median of {reps}), on {gpu}", flush=True)
 
 
 def main():
@@ -104,6 +91,7 @@ def main():
         trace_plain,
     )
     from tfhe_omr_tpu_torch.utils import build
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
 
     params = OmrParameters.default()
     dev = torch.device("cuda")
@@ -143,9 +131,9 @@ def main():
             held(name, f"{c} samples x {n_lwe // 2} steps",
                  blind_rotate(sub_acc, sub_am, key),
                  blind_rotate_plain(sub_acc, sub_am, key))
-        ms = cuda_ms(lambda: blind_rotate(acc, amounts, key), args.reps)
+        ms = median_ms(lambda: blind_rotate(acc, amounts, key), "cuda", args.reps)
         print(f"{name}: {m} samples x {n_lwe // 2} steps: {ms:.3f} ms "
-              f"(mean of {args.reps}), key {key.nbytes()} bytes, on {gpu}",
+              f"(median of {args.reps}), key {key.nbytes()} bytes, on {gpu}",
               flush=True)
         del key, acc, amounts
         torch.cuda.empty_cache()
@@ -162,9 +150,9 @@ def main():
                  trace(sub, key), trace_plain(sub, key))
         for m in (args.batch, 1):
             part = acc[:m].contiguous()
-            ms = cuda_ms(lambda: trace(part, key), args.reps)
+            ms = median_ms(lambda: trace(part, key), "cuda", args.reps)
             print(f"trace: {m} messages x {len(autos)} rounds: {ms:.3f} ms "
-                  f"(mean of {args.reps}), key {key.nbytes()} bytes, on {gpu}",
+                  f"(median of {args.reps}), key {key.nbytes()} bytes, on {gpu}",
                   flush=True)
         del key, acc
         torch.cuda.empty_cache()
@@ -182,10 +170,10 @@ def main():
                      torch.stack([ntt.fwd_last(sub), ntt.inv_last(sub)]),
                      torch.stack([ntt.fwd_last_plain(sub), ntt.inv_last_plain(sub)]))
             reps = 50 * args.reps
-            fwd = cuda_ms(lambda: ntt.fwd_last(x), reps)
-            inv = cuda_ms(lambda: ntt.inv_last(x), reps)
+            fwd = median_ms(lambda: ntt.fwd_last(x), "cuda", reps)
+            inv = median_ms(lambda: ntt.inv_last(x), "cuda", reps)
             print(f"{ntt.name}: {rows} rows x {ntt.n}: forward {fwd:.4f} ms, "
-                  f"inverse {inv:.4f} ms (mean of {reps}), on {gpu}", flush=True)
+                  f"inverse {inv:.4f} ms (median of {reps}), on {gpu}", flush=True)
             if args.grid:
                 sweep_grid(ntt, x, reps, gpu)
             del x

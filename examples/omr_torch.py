@@ -135,8 +135,9 @@ def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
 
     ``runner`` drives detect and both digest encoders: the pack's
     ``Detector`` unless a ``ShardedDetector`` is given, whose digests then go
-    through the sharded reduce end to end. Across ranks the whole board is
-    one detect call and the stack stays sharded (``RankRows``).
+    through the sharded reduce end to end; the stack then stays sharded,
+    each shard's rows on its own device (``RankRows``), in one process as
+    across ranks.
     ``profile_dir`` takes a ``torch.profiler`` Chrome trace of the detect
     stage."""
     import torch
@@ -150,7 +151,7 @@ def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
     dev = detector.device
     if runner is None:
         runner = detector
-    across_ranks = getattr(getattr(runner, "mesh", None), "world", 1) > 1
+    sharded = hasattr(runner, "mesh")
     st = _Stages(getattr(runner, "synchronize", lambda: synchronize(dev)))
     rec = TimingRecord(device_count=getattr(runner, "n_dev", 1),
                        payload_count=all_count)
@@ -185,8 +186,9 @@ def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
     rec.gen_payloads_time = time.perf_counter() - t0
 
     def detect():
-        if across_ranks:  # one dispatch: each rank keeps its rows
-            return runner.detect(ClueBatch(clue_buf[:, :n_dim], clue_buf[:, n_dim:]))
+        if sharded:  # each replica detects its own rows and keeps them
+            return runner.detect(ClueBatch(clue_buf[:, :n_dim], clue_buf[:, n_dim:]),
+                                 batch)
         pv = torch.empty((all_count, 2, params.n2), dtype=torch.int64, device=dev)
         for s in range(0, all_count, batch):
             e = min(s + batch, all_count)

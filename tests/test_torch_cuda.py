@@ -329,7 +329,8 @@ def test_sharded_detector_on_the_cards_matches_single(cuda):
     """Detect (ragged) and both digests through a ShardedDetector over every
     visible card plus card 0 once more (so that a one-card machine still
     splits the batch over two shards) equal the single Detector's; a replica
-    on another card holds the kernels' key layout, copied as it lies."""
+    on another card holds the kernels' key layout, copied as it lies, and
+    each shard's rows stay on its replica's card."""
     from tfhe_omr_tpu_torch.parallel import ShardedDetector, make_data_mesh
 
     params = OmrParameters.tiny()
@@ -345,7 +346,8 @@ def test_sharded_detector_on_the_cards_matches_single(cuda):
     build.reset_launches()
     got = sharded.detect(clues)
     assert build.LAUNCHES["blind_rotate2"] == sharded.n_dev
-    assert torch.equal(got, single)
+    assert [p.device for p in got.parts] == [rep.device for rep in sharded.replicas]
+    np.testing.assert_array_equal(sharded.gather(got), single.cpu().numpy())
     rp = RetrievalParams.for_params(params, 11, 4)
     payloads = random_payloads(np.random.default_rng(5), 11, rp.payload_length)
     assert torch.equal(
@@ -354,6 +356,46 @@ def test_sharded_detector_on_the_cards_matches_single(cuda):
     assert torch.equal(
         sharded.encode_pertinent_payloads(rp, got, payloads, 7, chunk=4),
         detector.encode_pertinent_payloads(rp, single, payloads, 7, chunk=4))
+
+
+@pytest.mark.parametrize("streams", [1, 4, 16])
+def test_probe_chain_and_mac_kernels_match_plain(cuda, streams):
+    """C1 for every op and type, C2; the float32 FMA chain at 3 iterations,
+    where the plain version's float64 emulation of fmaf is exact."""
+    from tfhe_omr_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=cuda).manual_seed(streams)
+    x = torch.randint(1, 1 << 20, (64, 513), generator=gen, device=cuda, dtype=torch.int32)
+    y = torch.randint(1, 1 << 10, (64, 513), generator=gen, device=cuda, dtype=torch.int32)
+    xf = torch.rand((64, 513), generator=gen, device=cuda) * 0.5 + 0.5
+    yf = torch.rand((64, 513), generator=gen, device=cuda) * 0.2 + 0.9
+    cases = [(x, y, op, 9) for op in probes.CHAIN_DTYPES[torch.int32]]
+    cases += [(x.long(), y.long(), "mul_add", 9), (xf, yf, "fma", 3)]
+    for a, b, op, iters in cases:
+        got = probes.probe_chain(a, b, op, iters, streams)
+        assert torch.equal(got, probes.probe_chain_plain(a, b, op, iters, streams)), op
+    assert torch.equal(probes.probe_mac(x, y, 9, streams),
+                       probes.probe_mac_plain(x, y, 9, streams))
+
+
+@pytest.mark.parametrize("shape,rounds", [
+    ((1, 2048, 2048, 256), 1), ((1, 128, 12, 256), 3), ((2048, 48, 12, 128), 2),
+    ((256, 384, 96, 128), 2), ((128, 768, 192, 128), 1), ((1, 20, 200, 72), 2),
+    ((1, 384, 768, 128), 8192),  # positive operands: every int32 sum wraps
+])
+def test_probe_i8dot_kernel_matches_plain(cuda, shape, rounds):
+    """C3 on the tensor cores at the probes' shapes, int32 sums that wrap."""
+    from tfhe_omr_tpu_torch.ops import probes
+
+    g, m, k, n = shape
+    lo = 64 if rounds == 8192 else -128
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randint(lo, 128, (g, m, k), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(lo, 128, (g, k, n), generator=gen, device=cuda).to(torch.int8)
+    build.reset_launches()
+    got = probes.probe_i8dot(a, b, rounds)
+    assert build.LAUNCHES["probe_i8dot"] == 1
+    assert torch.equal(got, probes.probe_i8dot_plain(a, b, rounds))
 
 
 _RANK_ON_ITS_CARD = """

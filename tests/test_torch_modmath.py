@@ -96,3 +96,26 @@ def test_gadget_digits_match_jax(preset, name):
     want = jg.decompose_to_field(jnp.asarray(x), axis=1)
     _same(got, want)
     _same(g.decompose(torch.as_tensor(x), dim=0), jg.decompose(jnp.asarray(x), axis=0))
+    # the host-side recomposition the JAX tests use: the same sums mod q
+    digs = np.asarray(jg.decompose(jnp.asarray(x[:, 0]), axis=0))
+    np.testing.assert_array_equal(g.recompose_host(digs), jg.recompose_host(digs))
+
+
+@pytest.mark.parametrize("q", [Q1, Q2, QT2])
+def test_host_helpers_match_jax(q):
+    """PrimeField.pow and .rand, as the JAX tests call them."""
+    f, jf = PrimeField(q), JaxField(q)
+    assert f.pow(3, q - 2) == jf.pow(3, q - 2) == f.inv(3)
+    np.testing.assert_array_equal(f.rand(np.random.default_rng(5), (3, 4)),
+                                  jf.rand(np.random.default_rng(5), (3, 4)))
+
+
+def test_stage_timer_stage_adds_up():
+    from tfhe_omr_tpu_torch.utils.timing import StageTimer
+
+    t = StageTimer("cpu")
+    with t.stage("a"):
+        sum(range(1000))
+    with t.stage("a"):
+        pass
+    assert t.stages["a"] >= 0 and set(t.stages) == {"a"}

@@ -39,6 +39,10 @@ import sharding_worker_torch
 import fp_margin_probe_torch
 import fp_rate_probe_torch
 import fp_criterion_probe_torch
+import vpu_probe_torch
+import vpu_peak_probe_torch
+import mac_probe_torch
+import mosaic_unsupported_probe_torch
 import bench_torch
 import chip_smoke
 sys.path.insert(0, "tests")
@@ -47,7 +51,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tfhe_omr_tpu"))
 assert not bad, bad
 for name in ("core.matrix", "core.retriever", "native", "parallel",
-             "parallel.mesh", "parallel.distributed"):
+             "parallel.mesh", "parallel.distributed", "ops.probes"):
     assert "tfhe_omr_tpu_torch." + name in names, names
 assert len(names) >= 24, names
 print("imported", len(names))
@@ -63,6 +67,38 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+
+
+PUBLIC = r"""
+import sys, torch
+from tfhe_omr_tpu_torch import (OmrParameters, RetrievalParams, PAYLOAD_LENGTH,
+    random_payloads, KeyGen, SecretKeyPack, Sender, Detector, Retriever, OmrError,
+    __version__)
+import tfhe_omr_tpu_torch
+from tfhe_omr_tpu_torch.utils import build
+assert __version__ == "0.1.0" and len(tfhe_omr_tpu_torch.__all__) == 10
+assert all(hasattr(tfhe_omr_tpu_torch, n) for n in tfhe_omr_tpu_torch.__all__)
+assert build._library is None, "importing the package built the kernels"
+assert not torch.cuda.is_initialized(), "importing the package initialised CUDA"
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tfhe_omr_tpu"))
+assert not bad, bad
+from tfhe_omr_tpu_torch.core.context import OmrContext
+params = OmrParameters.tiny()
+skp = KeyGen.generate_secret_key(params, rng=3, ctx=OmrContext(params, "cpu"))
+assert isinstance(skp, SecretKeyPack) and skp.generate_sender().clue_key_size() > 0
+print("public names ok")
+"""
+
+
+def test_package_exports_the_public_names():
+    """``from tfhe_omr_tpu_torch import ...`` gives the JAX package's ten
+    public names and its version without jax, a card or a kernel build."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", PUBLIC], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "public names ok" in proc.stdout
 
 
 def _first_line_json(script, *args, env=None):
@@ -125,7 +161,11 @@ def test_bench_script_smoke_on_cpu(bench):
 
 @pytest.mark.parametrize("script", ["bench_torch.py", "benches/omr_bench_torch.py",
                                     "benches/sharding_bench_torch.py",
-                                    "examples/omr_time_analyze2_torch.py"])
+                                    "examples/omr_time_analyze2_torch.py",
+                                    "benches/vpu_probe_torch.py",
+                                    "benches/vpu_peak_probe_torch.py",
+                                    "benches/mac_probe_torch.py",
+                                    "benches/mosaic_unsupported_probe_torch.py"])
 def test_scripts_refuse_to_run_on_the_host_unasked(script):
     """With no card and no ``--device cpu`` a script exits non-zero, names
     the flag and prints no result."""

@@ -31,7 +31,7 @@ from tfhe_omr_tpu_torch.core.keygen import detection_key_from_numpy
 from tfhe_omr_tpu_torch.core.params import OmrParameters, RetrievalParams
 from tfhe_omr_tpu_torch.core.payload import random_payloads
 from tfhe_omr_tpu_torch.core.sender import ClueBatch
-from tfhe_omr_tpu_torch.parallel import ShardedDetector, make_data_mesh
+from tfhe_omr_tpu_torch.parallel import RankRows, ShardedDetector, make_data_mesh
 
 # The suite runs in several xdist workers on one host: one torch thread each
 # keeps their CPU thread pools from oversubscribing its cores.
@@ -110,9 +110,15 @@ def test_sharded_detect_matches_single_and_jax(tiny, n):
     det, clues, _rp, _pay, _plain, single, want = tiny
     sharded = ShardedDetector(det, make_data_mesh(["cpu"] * n))
     got = sharded.detect(clues)
-    assert torch.equal(got, single)
-    np.testing.assert_array_equal(got.numpy(), want["detect"])
+    b = sharded.bounds(clues.a.shape[0])
+    assert isinstance(got, RankRows) and (got.lo, got.total) == (0, b[-1])
+    assert [p.shape[0] for p in got.parts] == [h - l for l, h in zip(b, b[1:]) if h > l]
+    for part, lo, hi in zip(got.parts, b, b[1:]):
+        assert torch.equal(part, single[lo:hi])
     np.testing.assert_array_equal(sharded.gather(got), want["detect"])
+    # in calls of at most 3 messages a replica: the same parts
+    again = sharded.detect(clues, batch=3)
+    assert all(torch.equal(p, q) for p, q in zip(again.parts, got.parts))
 
 
 @pytest.mark.parametrize("n", SHARDS)
@@ -124,9 +130,11 @@ def test_sharded_detect_splits_ragged_batches(tiny, n):
     sizes = np.diff(sharded.bounds(RAGGED))
     assert sizes.sum() == RAGGED and sizes.max() - sizes.min() <= 1
     got = sharded.detect(ClueBatch(clues.a[:RAGGED], clues.b7[:RAGGED]))
-    assert got.shape[0] == RAGGED
-    assert torch.equal(got, single[:RAGGED])
-    np.testing.assert_array_equal(got.numpy(), want["ragged"])
+    assert [p.shape[0] for p in got.parts] == [s for s in sizes.tolist() if s]
+    stack = sharded.gather(got)
+    assert stack.shape[0] == RAGGED
+    np.testing.assert_array_equal(stack, single[:RAGGED].numpy())
+    np.testing.assert_array_equal(stack, want["ragged"])
 
 
 @pytest.mark.parametrize("n", SHARDS)
@@ -172,6 +180,32 @@ def test_sharded_digests_of_a_board_shorter_than_the_layout(tiny, n):
         det.encode_pertinent_indices(rp, pv, np.random.default_rng(3), chunk=CHUNK))
 
 
+@pytest.mark.parametrize("n", SHARDS)
+def test_encoders_take_each_replicas_part_as_it_lies(tiny, n, monkeypatch):
+    """The digest encoders hand each replica the part detect left on its
+    device, with no copy, and the digests equal the single Detector's."""
+    det, clues, rp, payloads, _plain, single, _want = tiny
+    sharded = ShardedDetector(det, make_data_mesh(["cpu"] * n))
+    got = sharded.detect(clues)
+    seen = []
+    for name in ("encode_index_rows", "encode_payload_rows"):
+        inner = getattr(Detector, name)
+
+        def spy(self, rp_, pert, *args, _inner=inner, **kw):
+            seen.append(pert.data_ptr())
+            return _inner(self, rp_, pert, *args, **kw)
+
+        monkeypatch.setattr(Detector, name, spy)
+    m_idx = sharded.encode_pertinent_indices(rp, got, np.random.default_rng(7),
+                                             chunk=CHUNK)
+    m_pay = sharded.encode_pertinent_payloads(rp, got, payloads, 9, chunk=CHUNK)
+    assert seen == [p.data_ptr() for p in got.parts] * 2
+    assert torch.equal(m_idx, det.encode_pertinent_indices(
+        rp, single, np.random.default_rng(7), chunk=CHUNK))
+    assert torch.equal(m_pay, det.encode_pertinent_payloads(
+        rp, single, payloads, 9, chunk=CHUNK))
+
+
 def test_replica_on_its_own_device_is_the_detector(tiny):
     det = tiny[0]
     assert det.to("cpu") is det
@@ -196,7 +230,7 @@ def test_sharded_default_params_match_single_and_jax():
     assert rp.max_encode_indices_cipher_count == 5 and rp.cmb_cipher_count == 28
     sharded = ShardedDetector(det, make_data_mesh(["cpu"] * 3))
     got = sharded.detect(clues)
-    assert torch.equal(got, single)
+    np.testing.assert_array_equal(sharded.gather(got), single.numpy())
     m_idx = sharded.encode_pertinent_indices(rp, got, np.random.default_rng(7),
                                              chunk=CHUNK)
     np.testing.assert_array_equal(m_idx.numpy(), want["idx"])

@@ -50,7 +50,7 @@ def main():
     b = sharded.bounds(COUNT)
     lo, hi = b[rank * LOCAL_REPLICAS], b[(rank + 1) * LOCAL_REPLICAS]
     assert isinstance(pv, RankRows) and (pv.lo, pv.total) == (lo, COUNT)
-    assert pv.rows.shape[0] == hi - lo  # this rank's rows only
+    assert sum(p.shape[0] for p in pv.parts) == hi - lo  # this rank's rows only
 
     rp = skp.generate_retriever(COUNT, 2).params
     idx_ct = sharded.encode_pertinent_indices(rp, pv, np.random.default_rng(7), chunk=2)

@@ -317,6 +317,15 @@ class SecretKeyPack:
         return c.ntt2.inv_last(phase).cpu().numpy()
 
 
+class KeyGen:
+    """Entry point (counterpart of ``KeyGen``, reference ``key_gen/mod.rs``)."""
+
+    @staticmethod
+    def generate_secret_key(params: OmrParameters, rng=None,
+                            ctx: OmrContext | None = None) -> SecretKeyPack:
+        return SecretKeyPack(params, rng, ctx)
+
+
 def secret_key_pack_from_numpy(params: OmrParameters, clue_sk, inter_sk, z1,
                                z2, ctx: OmrContext | None = None) -> SecretKeyPack:
     """A pack holding given secrets (e.g. a JAX ``SecretKeyPack``'s), for

@@ -56,6 +56,11 @@ class Sender:
             np.concatenate([k.mat_a, k.mat_b7], axis=1), dtype=torch.float64,
             device=self.device)
 
+    def clue_key_size(self) -> int:
+        """Bytes of the public key (the reference's ``Size`` accounting):
+        (pk_a, pk_b) of u16 coefficients."""
+        return 2 * self.clue_key.mat_a.shape[0] * 2
+
     def gen_clues(self, count: int, rng: np.random.Generator) -> ClueBatch:
         """Encrypt ``count`` all-zero clue vectors under this sender's key."""
         k = self.clue_key

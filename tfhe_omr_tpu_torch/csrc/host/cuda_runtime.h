@@ -36,6 +36,7 @@ template <class K> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "host shim error"; }
 
+inline int __mulhi(int a, int b) { return (int)(((long long)a * b) >> 32); }
 inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b) {
   return (unsigned long long)(((unsigned __int128)a * b) >> 64);

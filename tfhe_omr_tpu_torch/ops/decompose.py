@@ -82,3 +82,10 @@ class SignedGadget:
     def gadget_values(self) -> np.ndarray:
         """h_j values (int64 numpy) used by key generation."""
         return np.asarray(self.h, dtype=np.int64)
+
+    def recompose_host(self, digits: np.ndarray) -> np.ndarray:
+        """Host-side sum of d_j h_j mod q over the first axis (for tests)."""
+        acc = np.zeros(digits.shape[1:], dtype=object)
+        for j in range(self.d):
+            acc = acc + np.asarray(digits[j]).astype(object) * self.h[j]
+        return np.mod(acc, self.field.q).astype(np.int64)

@@ -83,6 +83,9 @@ class PrimeField:
     def inv(self, x: int) -> int:
         return pow(int(x), self.q - 2, self.q)
 
+    def pow(self, x: int, e: int) -> int:
+        return pow(int(x), int(e), self.q)
+
     def find_primitive_root_of_unity(self, order: int) -> int:
         """Host: a primitive ``order``-th root of unity mod q (order | q-1)."""
         q = self.q
@@ -197,6 +200,10 @@ class PrimeField:
         return x[0]
 
     # ------------------------------------------------------------- utilities
+    def rand(self, rng: np.random.Generator, shape) -> np.ndarray:
+        """Host: uniform field elements as int64 numpy."""
+        return rng.integers(0, self.q, size=shape, dtype=np.int64)
+
     def gaussian(self, rng: np.random.Generator, sigma: float, shape):
         """Host: rounded discrete Gaussian noise, mapped into [0, q);
         ``sigma == 0`` gives the noise-free mode and draws nothing."""

@@ -5,7 +5,9 @@ independent, so
 
 * the clues of a batch are split over the shards: this process's devices
   and, when a ``torch.distributed`` process group is up, the other ranks'
-  (global shards = ranks x local devices, rank-major);
+  (global shards = ranks x local devices, rank-major). The pertinency
+  stack stays where detection left it, each shard's rows on its device
+  (:class:`RankRows`), from ``detect`` to the digest encoders;
 * the detection key is replicated, one :class:`Detector` per local device
   (:meth:`Detector.to`: the keys are copied as they lie on the first);
 * a digest is an exact modular sum over the messages: every shard runs the
@@ -92,11 +94,14 @@ def make_data_mesh(devices=None) -> DataMesh:
 
 @dataclass
 class RankRows:
-    """This rank's rows ``lo .. lo + len(rows)`` of a pertinency stack of
-    ``total`` messages that lies sharded across the ranks, on the rank's
-    first device."""
+    """This process's rows of a pertinency stack of ``total`` messages that
+    lies sharded over the local devices and the ranks: ``parts[i]`` holds
+    the rows of this process's i-th non-empty shard (``bounds`` of the
+    :class:`ShardedDetector`) on that shard's replica's device, and ``lo``
+    is the first row of the first part. Nothing stacks the parts but
+    :meth:`ShardedDetector.gather`."""
 
-    rows: torch.Tensor
+    parts: list[torch.Tensor]
     lo: int
     total: int
 
@@ -129,13 +134,16 @@ class ShardedDetector:
                 if b[first + i] < b[first + i + 1]]
 
     def _rank_rows(self, pertinency) -> RankRows:
-        """A whole stack (one process) or this rank's rows, as RankRows."""
+        """A whole stack (one process), sliced into the local shards' rows
+        where it lies, or the RankRows that :meth:`detect` returned."""
         if isinstance(pertinency, RankRows):
             return pertinency
         if self.mesh.world > 1:
             raise ValueError("multi-process encoders need the RankRows that "
                              "ShardedDetector.detect returned")
-        return RankRows(pertinency, 0, pertinency.shape[0])
+        total = pertinency.shape[0]
+        return RankRows([pertinency[lo:hi] for _rep, lo, hi in self._local(total)],
+                        0, total)
 
     def _reduce(self, partials: list[torch.Tensor], shape) -> torch.Tensor:
         """Exact sum mod q2 of every shard's partial digest (each of
@@ -150,36 +158,42 @@ class ShardedDetector:
         return f2.reduce(total, f2.bits + self.n_dev.bit_length() + 1)
 
     # ----------------------------------------------------------------- api
-    def detect(self, clues: ClueBatch):
-        """Sharded batched detection. In one process: the pertinency cts
-        (B, 2, N2) in message order on the first device. Across ranks: this
-        rank's rows (:class:`RankRows`); nothing gathers the stack.
+    def detect(self, clues: ClueBatch, batch: int | None = None) -> RankRows:
+        """Sharded batched detection: this process's rows of the pertinency
+        cts (B, 2, N2) as :class:`RankRows`, one part per local shard on
+        its replica's device, in one process as across ranks. Nothing
+        copies rows between devices.
 
-        Every replica's work is queued before anything waits, so the
-        devices run side by side."""
+        Each replica detects its rows in calls of at most ``batch``
+        messages (all at once by default), written into its part. Every
+        replica's work is queued before anything waits, so the devices run
+        side by side."""
         total = clues.a.shape[0]
         shards = self._local(total)
-        batches = [ClueBatch(*rep._clues(ClueBatch(clues.a[lo:hi], clues.b7[lo:hi])))
-                   for rep, lo, hi in shards]
-        outs = [rep.detect(batch)
-                for (rep, _lo, _hi), batch in zip(shards, batches)]
-        if len(outs) == 1:
-            rows = outs[0].to(self.device)
-        elif outs:
-            rows = torch.cat([o.to(self.device) for o in outs])
-        else:
-            rows = torch.zeros((0, 2, self.detector.ctx.params.n2),
-                               dtype=torch.int64, device=self.device)
-        if self.mesh.world == 1:
-            return rows
+        step = batch or max(total, 1)
+        calls = -(-max((hi - lo for _rep, lo, hi in shards), default=0) // step)
+        parts = [None] * len(shards)
+        for j in range(calls):  # call j of every replica, queued side by side
+            for i, (rep, lo, hi) in enumerate(shards):
+                a, e = lo + j * step, min(lo + (j + 1) * step, hi)
+                if a >= e:
+                    continue
+                out = rep.detect(ClueBatch(clues.a[a:e], clues.b7[a:e]))
+                if e - a == hi - lo:
+                    parts[i] = out
+                    continue
+                if parts[i] is None:
+                    parts[i] = out.new_empty((hi - lo,) + tuple(out.shape[1:]))
+                parts[i][a - lo:e - lo] = out
         b = self.bounds(total)
-        return RankRows(rows, b[self.mesh.rank * len(self.replicas)], total)
+        return RankRows(parts, b[self.mesh.rank * len(self.replicas)], total)
 
     def gather(self, pertinency) -> np.ndarray:
         """The whole stack on the host of every rank (a collective). For
         tests and small boards: at D = 65536 the stack is 2.1 GB."""
         rr = self._rank_rows(pertinency)
-        mine = rr.rows.cpu().numpy()
+        mine = (np.concatenate([p.cpu().numpy() for p in rr.parts]) if rr.parts
+                else np.zeros((0, 2, self.detector.ctx.params.n2), dtype=np.int64))
         if self.mesh.world == 1:
             return mine
         parts = [None] * self.mesh.world
@@ -196,11 +210,11 @@ class ShardedDetector:
         mod q2 -> (2, N2): pertinency (B, 2, N2), plaintext polys (B, N2)."""
         rr = self._rank_rows(pertinency)
         partials = []
-        for rep, lo, hi in self._local(rr.total):
+        for (rep, lo, hi), part in zip(self._local(rr.total), rr.parts):
             zero = torch.zeros((2, plain.shape[1]), dtype=torch.int64, device=rep.device)
             partials.append(rep._encode_chunk(
-                rep._on_device(rr.rows[lo - rr.lo:hi - rr.lo]),
-                rep._on_device(plain[lo:hi]), zero, rep._fwd(False)))
+                rep._on_device(part), rep._on_device(plain[lo:hi]), zero,
+                rep._fwd(False)))
         return self._reduce(partials, (2, plain.shape[1]))
 
     def encode_pertinent_indices(self, retrieval_params, pertinency, rng,
@@ -211,9 +225,8 @@ class ShardedDetector:
         rp = retrieval_params
         rr = self._rank_rows(pertinency)
         base_addr = draw_index_buckets(rp, rr.total, rng)
-        partials = [rep.encode_index_rows(rp, rr.rows[lo - rr.lo:hi - rr.lo],
-                                          base_addr[lo:hi], lo, chunk)
-                    for rep, lo, hi in self._local(rr.total)]
+        partials = [rep.encode_index_rows(rp, part, base_addr[lo:hi], lo, chunk)
+                    for (rep, lo, hi), part in zip(self._local(rr.total), rr.parts)]
         return self._reduce(partials, (2, rp.polynomial_size))
 
     def encode_pertinent_payloads(self, retrieval_params, pertinency, payloads,
@@ -225,8 +238,7 @@ class ShardedDetector:
         rr = self._rank_rows(pertinency)
         weights = payload_weights(rp, seed, rr.total)
         payloads = np.asarray(payloads)
-        partials = [rep.encode_payload_rows(rp, rr.rows[lo - rr.lo:hi - rr.lo],
-                                            payloads[lo:hi], weights[:, :, lo:hi],
-                                            chunk)
-                    for rep, lo, hi in self._local(rr.total)]
+        partials = [rep.encode_payload_rows(rp, part, payloads[lo:hi],
+                                            weights[:, :, lo:hi], chunk)
+                    for (rep, lo, hi), part in zip(self._local(rr.total), rr.parts)]
         return self._reduce(partials, (rp.cmb_cipher_count, 2, rp.polynomial_size))

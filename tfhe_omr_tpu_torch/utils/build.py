@@ -51,6 +51,9 @@ _BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U64,
             _I32, _I64, _I32, _I32, _I32, _P]
 _TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P, _U64, _U64,
                _I32, _I64, _I32, _I32, _P]
+_PROBE_CHAIN_ARGS = [_I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P]
+_PROBE_MAC_ARGS = [_I32, _P, _P, _P, _I64, _I32, _P]
+_PROBE_I8DOT_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P]
 
 _library = None
 _host_library = None
@@ -152,6 +155,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("omr_ntt", _NTT_ARGS),
         ("omr_blind_rotate", _BR_ARGS),
         ("omr_trace", _TRACE_ARGS),
+        ("omr_probe_chain", _PROBE_CHAIN_ARGS),
+        ("omr_probe_mac", _PROBE_MAC_ARGS),
+        ("omr_probe_i8dot", _PROBE_I8DOT_ARGS),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

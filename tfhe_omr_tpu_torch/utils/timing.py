@@ -10,7 +10,9 @@ per-stage seconds).
 from __future__ import annotations
 
 import csv
+import statistics
 import time
+from contextlib import contextmanager
 from dataclasses import asdict, dataclass
 
 import torch
@@ -53,6 +55,32 @@ def synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def median_ms(fn, device, reps: int = 5, warm: bool = True) -> float:
+    """Median milliseconds of ``reps`` back-to-back calls of ``fn``, after
+    one warm call unless ``warm`` is false. On a card a CUDA event is
+    recorded between the calls, so the queue does not drain between them;
+    on the CPU the host clock."""
+    device = torch.device(device)
+    if warm:
+        fn()
+    synchronize(device)
+    if device.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+    with torch.cuda.device(device):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            fn()
+            mark.record()
+        marks[-1].synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+
+
 class StageTimer:
     """Accumulating wall-clock stage timer that synchronises ``device``."""
 
@@ -60,10 +88,18 @@ class StageTimer:
         self.device = resolve_device(device)
         self.stages: dict[str, float] = {}
 
+    @contextmanager
+    def stage(self, name: str):
+        """Add the synchronised wall seconds of the ``with`` body to
+        ``name``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            synchronize(self.device)
+            self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
+
     def time(self, name: str, fn, *args, **kwargs):
         """Run ``fn`` and add its synchronised wall seconds to ``name``."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        synchronize(self.device)
-        self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
-        return out
+        with self.stage(name):
+            return fn(*args, **kwargs)

@@ -61,6 +61,7 @@ def main() -> int:
     det = skp.generate_detector()
     rng = np.random.default_rng(2)
     batch = args.batch
+    print(f"warm: {det.warm(batch)}")
     own = skp.generate_sender().gen_clues(batch, rng)
     other = skp2.generate_sender().gen_clues(batch, rng)
 

@@ -6,9 +6,12 @@ The counterpart of benches/mac_probe.py, through ``csrc/probes.cu``:
      8192 iterations, 1 and 4 streams (probe_chain, fmaf);
   2. batched int8 dots (g, m, k) @ (g, k, n) -> int32 summed over 512
      rounds at the MAC-offload shapes (probe_i8dot, mma.sync s8), beside
-     the library's way to the same sums: one float32 ``torch.bmm`` a round
-     (exact: every sum stays below 2^24) added into an int32 total;
-  3. 2-D int8 dots at the block-diagonal sizes (probe_i8dot, g = 1).
+     the library's two ways to the same sums: one float32 ``torch.bmm`` a
+     round (exact: every sum stays below 2^24) added into an int32 total,
+     and the library's int8 product ``torch._int_mm`` (a loop over the
+     groups, one round: torch has no batched int8 product);
+  3. 2-D int8 dots at the block-diagonal sizes (probe_i8dot, g = 1), beside
+     ``torch._int_mm`` a round.
 
 Rates count MACs (FMAs), as the original does. Each time is the median of
 5 calls after a warm one, with CUDA events.
@@ -53,7 +56,7 @@ def main():
     from tfhe_omr_tpu_torch.ops.probes import probe_chain, probe_i8dot
     from tfhe_omr_tpu_torch.utils.build import resolve_device
     from tfhe_omr_tpu_torch.utils.rates import (
-        dot_work, library_i8dot, rate_record, spec_rates, step_work)
+        dot_work, library_i8dot, library_int_mm_ms, rate_record, spec_rates, step_work)
     from tfhe_omr_tpu_torch.utils.timing import median_ms
 
     try:
@@ -87,8 +90,13 @@ def main():
                                      dot_bytes)), flush=True)
         af, bf = a.float(), b.float()
         ms = median_ms(lambda: library_i8dot(af, bf, rounds), device)
-        print(json.dumps(rate_record(f"torch_bdot_{g}x{m}x{k}x{n}", work, ms, "gmac/s",
-                                     device)), flush=True)
+        print(json.dumps({"library": "float32 torch.bmm a round", **rate_record(
+            f"torch_bdot_{g}x{m}x{k}x{n}", work, ms, "gmac/s", device)}), flush=True)
+        for layout, ms in library_int_mm_ms(a, b, rounds).items():
+            print(json.dumps({"library": f"torch._int_mm, a loop of {g} x {rounds} calls "
+                              f"(a CUDA graph on a card), {layout}",
+                              **rate_record(f"torch_int_mm_bdot_{g}x{m}x{k}x{n}_{layout}",
+                                            work, ms, "gmac/s", device)}), flush=True)
 
     for m, k, n, rounds in TINY_DOT2D if args.tiny else DOT2D:
         a = torch.as_tensor(rng.integers(-64, 64, size=(m, k), dtype=np.int8), device=device)
@@ -97,6 +105,11 @@ def main():
         print(json.dumps(rate_record(f"dot2d_{m}x{k}x{n}", m * k * n * rounds, ms,
                                      "gmac/s", device, rates, dot_work(1, m, k, n, rounds),
                                      m * k + k * n + 4 * m * n)), flush=True)
+        for layout, ms in library_int_mm_ms(a, b, rounds).items():
+            print(json.dumps({"library": f"torch._int_mm, {rounds} calls (a CUDA graph "
+                              f"on a card), {layout}", **rate_record(
+                                  f"torch_int_mm_dot2d_{m}x{k}x{n}_{layout}",
+                                  m * k * n * rounds, ms, "gmac/s", device)}), flush=True)
     print(json.dumps({"card": card_line() if device.type == "cuda" else "cpu", **spec}))
 
 

@@ -10,7 +10,9 @@ streams, ``a2 = a * b; b2 = b + a2`` (2 ops an element an iteration) in
   2. int64 in plain torch operations, the counterpart of the original's
      XLA-level chain;
   3. one batched int8 dot (2048, 48, 12) @ (2048, 12, 128) -> int32 on the
-     tensor cores (probe_i8dot).
+     tensor cores (probe_i8dot), beside the library's int8 product
+     (``torch._int_mm``, a loop over the 2048 groups: torch has no batched
+     int8 product).
 
 Each time is the median of 5 calls after a warm one, with CUDA events.
 
@@ -53,7 +55,8 @@ def main():
     from bench_torch import card_line
     from tfhe_omr_tpu_torch.ops.probes import probe_chain, probe_chain_plain, probe_i8dot
     from tfhe_omr_tpu_torch.utils.build import resolve_device
-    from tfhe_omr_tpu_torch.utils.rates import dot_work, rate_record, spec_rates, step_work
+    from tfhe_omr_tpu_torch.utils.rates import (
+        dot_work, library_int_mm_ms, rate_record, spec_rates, step_work)
     from tfhe_omr_tpu_torch.utils.timing import median_ms
 
     try:
@@ -92,6 +95,11 @@ def main():
     b = torch.as_tensor(rng.integers(-64, 64, (g, k, n), dtype=np.int8), device=device)
     attempt("batched_i8_dot", lambda: probe_i8dot(a, b, 1), 2 * g * m * k * n,
             dot_work(g, m, k, n, 1), g * (m * k + k * n + 4 * m * n))
+    for layout, ms in library_int_mm_ms(a, b, 1).items():
+        print(json.dumps({"library": f"torch._int_mm, a loop of {g} calls (k, m padded) "
+                          f"(a CUDA graph on a card), {layout}",
+                          **rate_record(f"torch_int_mm_batched_i8_dot_{layout}",
+                                        2 * g * m * k * n, ms, "gops", device)}), flush=True)
     print(json.dumps({"card": card_line() if device.type == "cuda" else "cpu", **spec}))
 
 

@@ -9,7 +9,15 @@ and the unroll factor this reads as instructions an iteration, so a rate
 per operation (as the JAX probes count) can be turned into a rate per
 instruction.
 
+With ``--hash`` it prints instead, for every function whose name holds the
+filter, the SHA-256 of its machine code (the instruction words as
+cuobjdump prints them, which hold branch offsets relative to the function)
+and its instruction count: one JSON line per function,
+``{"function", "sass_sha256", "instructions"}``. Two builds whose lines
+agree compiled that function to the same code.
+
 Usage: python benches/probe_sass_torch.py [--filter probe_chain]
+       python benches/probe_sass_torch.py --hash --filter blind_rotate_kernel
 
 Needs the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -17,6 +25,7 @@ Needs the CUDA toolkit (nvcc, cuobjdump).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -29,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_WORD = re.compile(r"/\* (0x[0-9a-f]{16}) \*/")
 
 
 def _tool(name: str) -> str:
@@ -72,9 +82,23 @@ def loops(sass: str):
     return out
 
 
+def code_hashes(sass: str):
+    """(function, SHA-256 of its instruction words, instructions) for each
+    function of ``cuobjdump -sass`` output."""
+    out = []
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.splitlines()[0].strip()
+        words = _WORD.findall(chunk)
+        out.append((name, hashlib.sha256(" ".join(words).encode()).hexdigest(),
+                    len(words) // 2))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--filter", default="probe_", help="functions whose name holds this")
+    ap.add_argument("--hash", action="store_true",
+                    help="one hash of each function's machine code, not its loops")
     args = ap.parse_args()
 
     from tfhe_omr_tpu_torch.utils import build
@@ -86,11 +110,21 @@ def main():
         filt = _tool("cu++filt")
     except RuntimeError:
         filt = None
+    def readable(name):
+        if not filt:
+            return name
+        return subprocess.run([filt, name], capture_output=True, text=True).stdout.strip()
+
+    if args.hash:
+        for name, digest, count in code_hashes(sass):
+            if args.filter in readable(name):
+                print(json.dumps({"function": readable(name), "sass_sha256": digest,
+                                  "instructions": count}), flush=True)
+        return
     for name, found in loops(sass):
         if args.filter not in name:
             continue
-        if filt:
-            name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip()
+        name = readable(name)
         for start, end, ops in found:
             print(json.dumps({"function": name, "loop": [hex(start), hex(end)],
                               "instructions": sum(ops.values()),

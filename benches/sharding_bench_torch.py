@@ -69,7 +69,8 @@ def run_card(batch: int, reps: int, tiny: bool, device_arg: str):
         synchronize(device)
         return (time.perf_counter() - t0) / reps
 
-    out = detector.detect(clues)  # warm both paths
+    warm = {"plain": detector.warm(batch), "sharded": sharded.warm(batch)}
+    out = detector.detect(clues)
     out_s = sharded.detect(clues)
     synchronize(device)
     plain_a, shard_a = streamed(detector), streamed(sharded)
@@ -83,6 +84,7 @@ def run_card(batch: int, reps: int, tiny: bool, device_arg: str):
         "overhead_pct": 100.0 * (shard_s / plain_s - 1.0),
         "runs_s_per_batch": {"plain": [plain_a, plain_b], "sharded": [shard_a, shard_b]},
         "bit_exact": bool(np.array_equal(out.cpu().numpy(), sharded.gather(out_s))),
+        "warm": warm,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }))
 

@@ -30,7 +30,7 @@ import numpy as np
 
 VARIANTS = ("add", "mul", "mul_add", "sub_add", "shift_add", "mask_add", "sel_add")
 DOTS = ((2048, 2048, 256, 8), (128, 12, 256, 64), (128, 128, 256, 64))
-TINY_DOTS = ((32, 64, 24, 2), (16, 12, 24, 2), (16, 40, 24, 2))
+TINY_DOTS = ((32, 64, 32, 2), (24, 12, 32, 2), (24, 40, 32, 2))
 
 
 def main():
@@ -47,7 +47,8 @@ def main():
     from bench_torch import card_line
     from tfhe_omr_tpu_torch.ops.probes import probe_chain, probe_i8dot
     from tfhe_omr_tpu_torch.utils.build import resolve_device
-    from tfhe_omr_tpu_torch.utils.rates import dot_work, rate_record, spec_rates, step_work
+    from tfhe_omr_tpu_torch.utils.rates import (
+        dot_work, library_int_mm_ms, rate_record, spec_rates, step_work)
     from tfhe_omr_tpu_torch.utils.timing import median_ms
 
     try:
@@ -77,6 +78,11 @@ def main():
                                      "gops", device, spec.get("ops_per_s"),
                                      dot_work(1, m, k, n, rounds),
                                      m * k + k * n + 4 * m * n)), flush=True)
+        for layout, ms in library_int_mm_ms(a, b, rounds).items():
+            print(json.dumps({"library": f"torch._int_mm a round (a CUDA graph on a card), "
+                              f"{layout}", **rate_record(
+                                  f"torch_int_mm_{m}x{k}x{n}_{layout}",
+                                  2 * m * k * n * rounds, ms, "gops", device)}), flush=True)
     print(json.dumps({"card": card_line() if device.type == "cuda" else "cpu", **spec}))
 
 

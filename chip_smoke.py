@@ -23,10 +23,14 @@ Phases (each prints its result; any failure exits non-zero):
      monomial table) is 1 and 4;
   4+5. the omd oracle at the reference parameters, B = 1024 (8 pertinent
      messages, 1016 from a second key pack): key generation on the card,
-     clues, detect through the kernels, decrypt, [1,0,...,0] / zeros; every
-     kernel's launch count must have grown, and the first 32 outputs must
-     equal the plain path's detect on the card;
+     clues, Detector.warm(1024), detect through the kernels, decrypt,
+     [1,0,...,0] / zeros; every kernel's launch count must have grown
+     without the warm's launches, which are counted apart (``warm_launches``
+     in the kernels line), and the first 32 outputs must equal the plain
+     path's detect on the card;
   6. warm detect throughput at B = 1024 (median of 3) and its stage split;
+     each of the three detects must launch K1-K4; the first detect after
+     the warm one must take at most 1.25 x that median;
   7. the whole OMR pipeline of examples/omr_torch.py at the reference
      parameters through the kernels: D = 8192 messages (50 pertinent),
      B = 1024, clues on the card, both digest encoders, the recipient's
@@ -37,8 +41,8 @@ Phases (each prints its result; any failure exits non-zero):
      must equal the plain path's (plain=True), and the Retriever's decrypt
      the plain inverse NTT's.
   8. sharded and multi-process detection at the reference parameters, with
-     phase 7's keys: a ShardedDetector over every visible card on a ragged
-     batch (B = 1000): detect, one index digest and the payload digests
+     phase 7's keys: a ShardedDetector over every visible card, warmed on
+     every card (ShardedDetector.warm), on a ragged batch (B = 1000): detect, one index digest and the payload digests
      bit-equal to the single Detector's with the same numpy streams, the
      blind rotations, the trace and the q2 NTT launched; warm seconds per
      batch of the plain and the sharded path (several detects, one
@@ -49,7 +53,9 @@ Phases (each prints its result; any failure exits non-zero):
      NCCL on the card even with one rank; rank 0's record must say
      byte_exact and true_subset_of_decoded and count a launch of every
      kernel, the q1 NTT in its key generation, and a rank that fails or
-     outlives its time limit fails the script.
+     outlives its time limit fails the script. Then the dry-run entry
+     (tfhe_omr_tpu_torch/entry.py dryrun_multichip) over every visible card
+     at the small preset: sharded detect and both encoders equal to one card.
   9. the unit-rate probes (csrc/probes.cu, the twins of the TPU probes of
      benches/): probe_chain for every op, type and stream count, probe_mac
      and probe_i8dot (mma.sync s8) at the probes' shapes, one of them with
@@ -64,13 +70,29 @@ Phases (each prints its result; any failure exits non-zero):
      measured int32 multiply peak against the
      1.675e13 that ``bound`` assumes, and K1-K5's bound at the measured
      int32 multiply rate and, if every multiply took as long as a high
-     word (__mulhi), at that rate.
+     word (__mulhi), at that rate; the library's int8 product
+     (torch._int_mm, k zero-padded, a loop over the groups of a batched dot)
+     at the TPU dot probes' shapes and rounds (P2, P5, P7, P9), its calls
+     replayed from a CUDA graph so that the time is the card's, with b
+     row-major and column-major, each held equal to plain;
+  10. the pinned golden vectors (tests/golden/golden_vectors.npz) through the
+     kernels, no jax: one CMUX step of each level through K1 and K2, the
+     trace through K3, both NTTs and their inverses through K5 and K4, each
+     np.array_equal to its pin (utils/golden.py); then the profiled K1 and
+     K2 (the stage clocks of csrc/blind_rotate.cuh, instantiated in
+     csrc/blind_rotate_profiled.cu) bit-equal to plain on 5
+     samples and to the production kernels at the hot shapes, and the split
+     of a CMUX step into its stages there (benches/probe_step_torch.py).
 The line before the last is a JSON record of the kernels (``launches``:
 phases 4+5, 7 and 8 together for K1-K5, phase 9's timed runs for the probes,
 ``launches_by_path`` each (the ranks of phase
 8 are processes of their own: ``ranks`` is what rank 0's record counts),
 ``launches_per_detect`` one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
-``ms_main_path`` and ``bound_ms`` at the main path's); the last line is
+``ms_main_path`` and ``bound_ms`` at the main path's; K1-K5 ``golden_launches``
+of phase 10, K1 and K2 ``profiled`` with the profiled instantiation's
+launches, times and stage split, with stamps at every key plane, and
+``per_pass`` the same with one stamp a digit pass around the MAC and the
+key staging); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -108,6 +130,7 @@ SHARDED_BATCH = 1000
 SHARDED_REPS = 3
 RANKS_D = 2048
 RANK_TIMEOUT_S = 420
+WARM_FIRST_MAX = 1.25  # the first detect after Detector.warm, over the warm median
 
 # phase 9: the probes' compared loop counts, the timed runs' shape and work
 PROBE_SHAPE = (256, 1024)
@@ -123,6 +146,10 @@ PROBE_DOTS = [
     (1, 384, 96, 128, 2), (1, 768, 192, 128, 2), (1, 384, 768, 128, 8192),
 ]
 PROBE_DOT_MAIN = (256, 384, 96, 128, 512)
+# the library's int8 product (torch._int_mm) at the TPU dot probes' shapes
+# and rounds, (g, m, k, n, rounds)
+LIBRARY_DOTS = {"P2": (1, 2048, 2048, 256, 8), "P5": (256, 384, 96, 128, 512),
+                "P7": (1, 768, 192, 128, 16384), "P9": (2048, 48, 12, 128, 1)}
 
 # (counter name, JSON name, source, the TPU kernel it replaces)
 KERNELS = [
@@ -137,6 +164,8 @@ KERNELS = [
     ("trace", "trace", "tfhe_omr_tpu_torch/csrc/trace.cu",
      "tfhe_omr_tpu/ops/pallas_fused.py:1765"),
 ]
+# the kernels every detect launches (the q1 NTT runs in keygen only)
+DETECT_KERNELS = ("ntt2", "blind_rotate1", "blind_rotate2", "trace")
 PROBE_KERNELS = [
     ("probe_chain", "probe_chain", "tfhe_omr_tpu_torch/csrc/probes.cu",
      "benches/vpu_probe.py:42, benches/vpu_peak_probe.py:38, benches/mac_probe.py:112, "
@@ -414,6 +443,14 @@ def phase_sharded(keys, gpu):
         return (runner.encode_pertinent_indices(rp, pv, np.random.default_rng(SEED + 22)),
                 runner.encode_pertinent_payloads(rp, pv, payloads, SEED + 23))
 
+    warm = sharded.warm(SHARDED_BATCH)
+    if [w["device"] for w in warm] != [str(r.device) for r in sharded.replicas] or sum(
+            w["batch"] for w in warm) != SHARDED_BATCH:
+        raise AssertionError(f"ShardedDetector.warm missed a card: {warm}")
+    say(f"[sharded] ShardedDetector.warm({SHARDED_BATCH}) on {len(warm)} card(s): "
+        + ", ".join(f"{w['device']} {w['batch']} msgs {w['first_launch_s']:.4f} s"
+                    for w in warm))
+
     build.reset_launches()
     pv_s = sharded.detect(clues)
     idx_s, pay_s = digests(sharded, pv_s)
@@ -589,9 +626,25 @@ def phase_probes(gpu, results):
     missing = [c for c, *_ in PROBE_KERNELS if launches.get(c, 0) <= 0]
     if missing:
         raise AssertionError(f"probe kernels never launched in the timed runs: {missing}")
-    lib_ms = median_ms(lambda: rates.library_i8dot(af, bf, rounds), dev)
+    bmm_ms = median_ms(lambda: rates.library_i8dot(af, bf, rounds), dev)
     say(f"[probes] library: {rounds} float32 torch.bmm into an int32 total at "
-        f"{(g, m, k, n)}: {lib_ms:.4f} ms; launches {launches}")
+        f"{(g, m, k, n)}: {bmm_ms:.4f} ms; launches {launches}")
+    int_mm_ms = {}
+    for probe, (lg, lm, lk, ln, lr) in LIBRARY_DOTS.items():
+        la = torch.randint(-64, 64, (lg, lm, lk), generator=gen, device=dev).to(torch.int8)
+        lb = torch.randint(-64, 64, (lg, lk, ln), generator=gen, device=dev).to(torch.int8)
+        if lg == 1:
+            la, lb = la[0], lb[0]
+        # the calls replayed from a CUDA graph: the card's time, not the
+        # host's launches of 131072 calls (P5); each layout == plain first
+        int_mm_ms[probe] = rates.library_int_mm_ms(la, lb, lr)
+        int_mm_ms[probe]["ms"] = min(int_mm_ms[probe].values())
+        say(f"[probes] library {probe} {(lg, lm, lk, ln)} x {lr}: torch._int_mm "
+            f"({lg * lr} calls from a CUDA graph, k {lk} -> {rates.int_mm_k(lk)}, m {lm} -> "
+            f"{-(-lm // 128) * 128}), == plain; b row-major "
+            f"{int_mm_ms[probe]['b_row_major']:.4f} ms, b column-major "
+            f"{int_mm_ms[probe]['b_col_major']:.4f} ms on {gpu}")
+    lib_ms = int_mm_ms["P5"]["ms"]
 
     # multiplies a second: every op of the i32 mul chain is one; the mulhi
     # chain's ops are one high word and one add
@@ -621,7 +674,63 @@ def phase_probes(gpu, results):
                  bound_unit=run["bound_unit"], rate_per_s=run["rate"],
                  spec_per_s=spec_ops[run["unit"]],
                  library_ms=lib_ms if kernel == "probe_i8dot" else None)
+    rec["probe_i8dot"].update(
+        library_call=f"torch._int_mm, a loop of {g} x {rounds} calls (torch has no "
+                     "batched int8 product) replayed from a CUDA graph, b in the faster "
+                     "of row- and column-major",
+        library_bmm_ms=bmm_ms, library_int_mm_ms_by_probe=int_mm_ms)
     return launches, rec
+
+
+def phase_dryrun(gpu):
+    """Phase 8, the dry-run entry over every visible card."""
+    from tfhe_omr_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    rec = dryrun_multichip(torch.cuda.device_count())
+    say(f"[dryrun] dryrun_multichip({torch.cuda.device_count()}): {rec}, sharded == one "
+        f"card, {time.perf_counter() - t0:.2f} s on {gpu}")
+
+
+def phase_golden(ctx, gpu):
+    """Phase 10, the golden pins through the kernels; returns their
+    launches."""
+    from tfhe_omr_tpu_torch.utils import build, golden
+
+    pinned = golden.load()
+    build.reset_launches()
+    got = golden.through_kernels(ctx, golden.golden_inputs(ctx))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for name, kernel in golden.KERNEL_PINS.items():
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"golden {name}: {kernel} never launched")
+        if got[name].shape != pinned[name].shape or not np.array_equal(got[name], pinned[name]):
+            raise AssertionError(f"golden {name} through {kernel} != the pinned vector")
+    say(f"[golden] {', '.join(golden.KERNEL_PINS)} through K1-K5 np.array_equal to "
+        f"tests/golden/golden_vectors.npz (shapes as pinned: 4 samples, 1 CMUX step; "
+        f"4 messages; 2 rows); launches {launches} on {gpu}")
+    return launches
+
+
+def phase_profiled(ctx, gpu):
+    """Phase 10, the profiled K1 and K2 against plain and the production
+    kernels, and the stage split of a CMUX step at the hot shapes; returns
+    each level's record and the profiled launches."""
+    from probe_step_torch import run_level
+    from tfhe_omr_tpu_torch.utils import build
+
+    build.reset_launches()
+    recs = {}
+    for level in (1, 2):
+        recs[level] = run_level(ctx, level, None, None, 3, SEED,
+                                lambda line: say(f"[step] {json.dumps(line)}"))
+        say(f"[step] {json.dumps(recs[level])} on {gpu}")
+    launches = dict(build.LAUNCHES)
+    for level in (1, 2):
+        if launches.get(f"blind_rotate{level}_profiled", 0) <= 0:
+            raise AssertionError(f"the profiled K{level} never launched")
+    return recs, launches
 
 
 def free_port() -> int:
@@ -725,11 +834,14 @@ def main() -> int:
 
     build.reset_launches()
     run = run_omd(params, batch=BATCH, pertinent=PERTINENT, seed=SEED)
-    launches = dict(build.LAUNCHES)
+    # the warm is set-up, not the main path: its launches are kept apart
+    warm_launches = run.warm_launches
+    launches = {c: n - warm_launches.get(c, 0) for c, n in build.LAUNCHES.items()}
     say(f"[omd] keygen {run.keygen_s:.3f} s, detection key on the card "
         f"{run.detector.detect_key_size()} bytes")
-    say(f"[omd] clues {run.clues_s:.3f} s, detect (first call) {run.detect_s:.3f} s, "
-        f"decrypt {run.decrypt_s:.3f} s")
+    say(f"[omd] warm {run.warm}; its launches, not counted below: {warm_launches}")
+    say(f"[omd] clues {run.clues_s:.3f} s, detect (first call after warm) "
+        f"{run.detect_s:.3f} s, decrypt {run.decrypt_s:.3f} s")
     say(f"[omd] passed at B={BATCH}: [1,0,...,0] for {PERTINENT} pertinent, "
         f"zeros for {BATCH - PERTINENT}; launches {launches}")
     missing = [c for c, *_ in KERNELS if launches.get(c, 0) <= 0]
@@ -750,6 +862,9 @@ def main() -> int:
     runs = [run.detector.detect_with_time_info(run.clues)[1] for _ in range(3)]
     per_detect = {c: build.LAUNCHES[c] // 3 for c, *_ in KERNELS}
     say(f"[detect] kernel launches per detect at B={BATCH}: {per_detect}")
+    missing = [c for c in DETECT_KERNELS if per_detect[c] < 1]
+    if missing:
+        raise AssertionError(f"a detect after warm launched no {missing}")
     med = sorted(runs, key=lambda r: r.detect_time)[1]
     say(f"[detect] B={BATCH} warm median of 3: {BATCH / med.detect_time:.3f} msg/s, "
         f"{1e3 * med.detect_time / BATCH:.5f} ms/msg; stage1 "
@@ -759,6 +874,13 @@ def main() -> int:
         f"{[round(r.detect_time, 4) for r in runs]} s) on {gpu}")
     say(f"[detect] spread of detect_time over 3 runs: "
         f"{statistics.pstdev([r.detect_time for r in runs]):.5f} s")
+    say(f"[warm] Detector.warm({BATCH}): build {run.warm['build_s']:.4f} s, warm detect "
+        f"{run.warm['first_launch_s']:.4f} s; first detect after it {run.detect_s:.4f} s "
+        f"against the warm median {med.detect_time:.4f} s "
+        f"({run.detect_s / med.detect_time:.4f} x) on {gpu}")
+    if run.detect_s > WARM_FIRST_MAX * med.detect_time:
+        raise AssertionError(f"the first detect after warm took {run.detect_s:.4f} s, "
+                             f"over {WARM_FIRST_MAX} x the warm median")
     del run, runs, plain, res
     torch.cuda.empty_cache()
 
@@ -768,9 +890,14 @@ def main() -> int:
     del keys
     torch.cuda.empty_cache()
     ranks_launches = phase_ranks(gpu)
+    phase_dryrun(gpu)
     t0 = time.perf_counter()
     probe_launches, probe_results = phase_probes(gpu, results)
     say(f"[probes] phase 9 took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    golden_launches = phase_golden(ctx, gpu)
+    profiled, profiled_launches = phase_profiled(ctx, gpu)
+    say(f"[golden] phase 10 took {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for counter, jname, source, replaces in KERNELS:
@@ -778,14 +905,15 @@ def main() -> int:
         kernels.append({
             "name": jname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (launches[counter] + omr_launches[counter]
+            "launches": (launches.get(counter, 0) + omr_launches[counter]
                          + sharded_launches.get(counter, 0)
                          + ranks_launches[counter]),
-            "launches_by_path": {"omd": launches[counter],
+            "launches_by_path": {"omd": launches.get(counter, 0),
                                  "omr": omr_launches[counter],
                                  "sharded": sharded_launches.get(counter, 0),
                                  "ranks": ranks_launches[counter]},
             "launches_per_detect": per_detect[counter],
+            "warm_launches": warm_launches.get(counter, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             **{k: r[k] for k in ("ms_main_path", "main_path_shape", "bound_ms",
@@ -796,7 +924,18 @@ def main() -> int:
                if "inv_ms" in r else {}),
             "bound_ms_at_measured_int32_mul": r["bound_ms_at_measured_int32_mul"],
             "bound_ms_at_measured_mulhi": r["bound_ms_at_measured_mulhi"],
+            "golden_launches": golden_launches.get(counter, 0),
         })
+        if counter in ("blind_rotate1", "blind_rotate2"):
+            p = profiled[int(counter[-1])]
+            kernels[-1]["profiled"] = {
+                "source": "tfhe_omr_tpu_torch/csrc/blind_rotate_profiled.cu",
+                "launches": profiled_launches[f"{counter}_profiled"], "max_abs_err": 0,
+                "ms": p["profiled_ms"], "production_ms": p["kernel_ms"],
+                "stamp_cost_pct": p["stamp_cost_pct"], "shape": [p["samples"], p["steps"]],
+                "clock_max_sm_mhz": p["clock_max_sm_mhz"], "stages": p["stages"],
+                "per_pass": {k: p["per_pass"][k] for k in (
+                    "profiled_ms", "stamp_cost_pct", "stages")}}
     for counter, jname, source, replaces in PROBE_KERNELS:
         r = probe_results[jname]
         kernels.append({
@@ -807,6 +946,8 @@ def main() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "ms_main_path",
                                  "main_path_shape", "bound_ms", "bound_by", "bound_unit",
                                  "rate_per_s", "spec_per_s", "library_ms")},
+            **{k: r[k] for k in ("library_call", "library_bmm_ms",
+                                 "library_int_mm_ms_by_probe") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Time the five CUDA kernels alone at the main path's shapes.
 
 K1 / K2: the blind rotations on 7 x B and B samples with all 256 / 335
-steps (B = 1024 by default). K3: the trace on B messages, all rounds.
+steps (B = 1024 by default; ``--steps`` cuts the chains to fewer). K3: the trace on B messages, all rounds.
 K4: the q2 NTT, forward and inverse, on 1, 28 and 2048 rows (the
 Retriever's index and payload digests, the encoders' chunk). K5: the q1
 NTT on 7 x B rows (key generation). Random keys and inputs from a seed.
@@ -12,13 +12,17 @@ said of every kernel. Needs a CUDA card.
 To compare two commits, run this script against each checkout on the same
 card, one after the other, in turns (parent, change, change, parent).
 
+It stands in for the JAX package's benches/fused_l1.py, fused_l2.py and
+fused_trace.py (``--batch``, ``--steps``; the kernels are held against
+the plain version where those held the fused kernel against the XLA path).
+
 With ``--grid`` the row NTT's C entry point is also timed alone (no
 wrapper) over grids of 1, 2 and 3 blocks an SM, the grid the wrapper picks,
 and one block a row group: blocks that outlive their rows against blocks
 that do not.
 
 Usage:
-    python examples/bench_kernels_torch.py [--batch 1024] [--reps 3]
+    python examples/bench_kernels_torch.py [--batch 1024] [--steps S] [--reps 3]
         [--only k1,k2,k3,k4,k5] [--grid]
 """
 
@@ -71,6 +75,8 @@ def sweep_grid(ntt, x, reps: int, gpu: str) -> None:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--steps", type=int,
+                    help="CMUX steps of K1 and K2 (default all: 256 and 335)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed launches of K1-K3 (the NTTs take 50 times as many)")
     ap.add_argument("--check", type=int, default=5,
@@ -118,6 +124,7 @@ def main():
     for kid, name, f, ntt, g, lut, n_lwe, m in levels:
         if kid not in only:
             continue
+        n_lwe = 2 * min(args.steps or n_lwe // 2, n_lwe // 2)
         bsk = uniform(f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
         key = BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, name)
         del bsk

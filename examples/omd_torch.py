@@ -42,8 +42,10 @@ class OmdRun:
     pertinent: int
     keygen_s: float
     clues_s: float
-    detect_s: float
+    detect_s: float  # the first detect after Detector.warm
     decrypt_s: float
+    warm: dict  # what Detector.warm(batch) took, before anything was timed
+    warm_launches: dict  # kernel launches of that warm, by counter
 
 
 def run_omd(params, batch: int = 4, pertinent: int = 2, seed: int = 3,
@@ -55,6 +57,7 @@ def run_omd(params, batch: int = 4, pertinent: int = 2, seed: int = 3,
     from tfhe_omr_tpu_torch.core.context import OmrContext
     from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
     from tfhe_omr_tpu_torch.core.sender import ClueBatch
+    from tfhe_omr_tpu_torch.utils import build
     from tfhe_omr_tpu_torch.utils.timing import synchronize
 
     if not 0 < pertinent <= batch:
@@ -74,6 +77,11 @@ def run_omd(params, batch: int = 4, pertinent: int = 2, seed: int = 3,
         parts.append(sender2.gen_clues(batch - pertinent, rng))
     clues = ClueBatch.concat(parts)
     t2 = time.perf_counter()
+    before = dict(build.LAUNCHES)
+    warm = detector.warm(batch)
+    t_warm = time.perf_counter()
+    warm_launches = {c: n - before.get(c, 0) for c, n in build.LAUNCHES.items()
+                     if n > before.get(c, 0)}
     result = detector.detect(clues)
     synchronize(ctx.device)
     t3 = time.perf_counter()
@@ -87,7 +95,7 @@ def run_omd(params, batch: int = 4, pertinent: int = 2, seed: int = 3,
     assert not bad_pert, f"pertinent messages not [1,0,...,0]: {bad_pert}"
     assert not len(bad_other), f"non-pertinent messages not zero: {bad_other.tolist()}"
     return OmdRun(params, skp, detector, clues, result, decoded, pertinent,
-                  t1 - t0, t2 - t1, t3 - t2, t4 - t3)
+                  t1 - t0, t2 - t1, t3 - t_warm, t4 - t3, warm, warm_launches)
 
 
 def main():
@@ -110,9 +118,9 @@ def main():
     params = OmrParameters.tiny() if args.tiny else OmrParameters.default()
     run = run_omd(params, batch=args.batch, pertinent=min(2, args.batch),
                   seed=args.seed, device=device)
-    print(f"keygen {run.keygen_s:.3f}s clues {run.clues_s:.3f}s "
-          f"detect {run.detect_s:.3f}s (first call) decrypt {run.decrypt_s:.3f}s "
-          f"on {device}")
+    print(f"keygen {run.keygen_s:.3f}s clues {run.clues_s:.3f}s warm {run.warm} "
+          f"detect {run.detect_s:.3f}s (first call after warm) decrypt "
+          f"{run.decrypt_s:.3f}s on {device}")
     print(f"omd check passed: [1,0,...,0] for {run.pertinent} pertinent, "
           f"zeros for {args.batch - run.pertinent} others")
 

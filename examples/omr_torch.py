@@ -197,6 +197,12 @@ def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
             log.info("  detected %d/%d", e, all_count)
         return pv
 
+    # what a first detect and a first encoder chunk pay once (the kernel
+    # library, first launches, the allocator), before anything is timed
+    t0 = time.perf_counter()
+    warm = runner.warm(min(all_count, batch * getattr(runner, "n_dev", 1)))
+    log.info("warm detect (%.3fs): %s", time.perf_counter() - t0, warm)
+
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
@@ -217,6 +223,9 @@ def run_board(keys: OmrKeys, all_count: int, pertinent_count: int,
 
     retriever = skp.generate_retriever(all_count, pertinent_count)
     rp = retriever.params
+    t0 = time.perf_counter()
+    warm = runner.warm_encoders(rp, all_count)
+    log.info("warm encoders (%.3fs): %s", time.perf_counter() - t0, warm)
     index_cts = st.run("encode_indices", lambda: [
         runner.encode_pertinent_indices(rp, pv, rng)
         for _ in range(rp.max_encode_indices_cipher_count)])

@@ -13,6 +13,7 @@ every time, shows only on a card (``tests/test_torch_cuda.py``).
 import contextlib
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,3 +130,98 @@ def test_no_instantiation_for_other_parameters_raises(host, kernel):
     else:
         with pytest.raises(ValueError, match=r"no NTT kernel.*\(7, "):
             other.fwd_last(torch.zeros((2, 128), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("level", [1, 2])
+def test_profiled_blind_rotate_on_host_matches_plain(host, level, m):
+    """The profiled instantiation of the reference rings gives the
+    production output, and every stage of every block counts clocks (the
+    host's clock64 stand-in ticks once a read)."""
+    ctx = _ctx("default")
+    f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
+        ctx.f2, ctx.ntt2, ctx.gadget_br2)
+    n_lwe = 4
+    gen = torch.Generator().manual_seed(20 + level)
+    bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+    key = fused.BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
+    acc = _uniform(gen, f.q, (m, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
+    assert host.omr_blind_rotate_stages() == len(fused.BR_STAGES)
+    clocks = torch.zeros((fused.n_blocks(m, key.layout.s), len(fused.BR_STAGES)),
+                         dtype=torch.int64)
+    got = fused.blind_rotate(acc, amounts, key, stage_clocks=clocks)
+    assert build.LAUNCHES[f"blind_rotate{level}_profiled"] == 1
+    assert torch.equal(got, fused.blind_rotate_plain(acc, amounts, key))
+    assert torch.equal(got, fused.blind_rotate(acc, amounts, key))
+    assert bool((clocks > 0).all()), clocks
+    with pytest.raises(ValueError, match="stage clocks"):
+        fused.blind_rotate(acc, amounts, key, stage_clocks=clocks[:, :3])
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_profiled_blind_rotate_without_plane_stamps_matches_plain(host, level):
+    """With ``plane_stamps=False`` the profiled instantiation still gives
+    the production output; the key staging counts in "mac", so its own
+    column stays 0 and every other stage counts clocks."""
+    ctx = _ctx("default")
+    f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
+        ctx.f2, ctx.ntt2, ctx.gadget_br2)
+    m = 5
+    gen = torch.Generator().manual_seed(30 + level)
+    bsk = _uniform(gen, f.q, (6, ntt.n, g.d, 2, 2))
+    key = fused.BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
+    acc = _uniform(gen, f.q, (m, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (4, m))
+    clocks = torch.zeros((fused.n_blocks(m, key.layout.s), len(fused.BR_STAGES)),
+                         dtype=torch.int64)
+    fine = torch.zeros_like(clocks)
+    got = fused.blind_rotate(acc, amounts, key, stage_clocks=clocks, plane_stamps=False)
+    assert torch.equal(got, fused.blind_rotate_plain(acc, amounts, key))
+    fused.blind_rotate(acc, amounts, key, stage_clocks=fine)
+    staging = fused.BR_STAGES.index("staging")
+    assert bool((clocks[:, staging] == 0).all()), clocks
+    others = [i for i in range(len(fused.BR_STAGES)) if i != staging]
+    assert bool((clocks[:, others] > 0).all()), clocks
+    # the host clock ticks once a read: fewer reads without the plane stamps
+    assert int(clocks.sum()) < int(fine.sum())
+
+
+def test_profiled_blind_rotate_has_no_tiny_instantiation(host):
+    ctx = _ctx("tiny")
+    f, ntt, g = ctx.f1, ctx.ntt1, ctx.gadget_br1
+    bsk = torch.zeros((3, ntt.n, g.d, 2, 2), dtype=torch.int64)
+    key = fused.BlindRotateKey(bsk, bsk, ntt, g, "blind_rotate1")
+    acc = torch.zeros((1, 2, ntt.n), dtype=torch.int64)
+    clocks = torch.zeros((1, len(fused.BR_STAGES)), dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused.blind_rotate(acc, torch.zeros((2, 1), dtype=torch.int64), key,
+                           stage_clocks=clocks)
+
+
+def test_kernels_on_host_reproduce_the_golden_pins(host):
+    """The pinned golden vectors that the kernels compute (one CMUX step
+    each level, the trace, both NTTs and inverses), through the host build:
+    what chip_smoke.py holds on the card."""
+    from tfhe_omr_tpu_torch.utils import golden
+
+    ctx = _ctx("default")
+    got = golden.through_kernels(ctx, golden.golden_inputs(ctx))
+    pinned = golden.load()
+    assert set(got) == set(golden.KERNEL_PINS)
+    for name, kernel in golden.KERNEL_PINS.items():
+        assert build.LAUNCHES[kernel] >= 1, kernel
+        assert np.array_equal(got[name], pinned[name]), name
+
+
+def test_stage_clocks_on_the_plain_path_raise():
+    """A CPU tensor runs the plain version, which has no clocks to give."""
+    ctx = _ctx("tiny")
+    f, ntt, g = ctx.f1, ctx.ntt1, ctx.gadget_br1
+    bsk = torch.zeros((3, ntt.n, g.d, 2, 2), dtype=torch.int64)
+    key = fused.BlindRotateKey(bsk, bsk, ntt, g, "blind_rotate1")
+    with pytest.raises(ValueError, match="plain path has none"):
+        fused.blind_rotate(torch.zeros((1, 2, ntt.n), dtype=torch.int64),
+                           torch.zeros((2, 1), dtype=torch.int64), key,
+                           stage_clocks=torch.zeros((1, len(fused.BR_STAGES)),
+                                                    dtype=torch.int64))

@@ -1,10 +1,12 @@
 """The port imports torch and numpy, never jax.
 
 Runs in a subprocess because this suite's conftest imports jax. Imports
-the package, every submodule (``parallel`` among them), every example and
-bench of the port, bench_torch.py and chip_smoke.py. Then one smoke case
-for bench_torch.py and for each bench script at ``--tiny --device cpu``: the
-first line of standard output parses as JSON and carries the script's keys.
+the package, every submodule (``parallel`` and ``entry`` among them), every
+example and bench of the port, bench_torch.py and chip_smoke.py. Then one
+smoke case for bench_torch.py and for each bench script at ``--tiny
+--device cpu``: the first line of standard output parses as JSON and
+carries the script's keys. Last, the port's test files that must run where
+there is no jax run with jax (and the JAX package) unimportable.
 """
 
 import json
@@ -43,6 +45,9 @@ import vpu_probe_torch
 import vpu_peak_probe_torch
 import mac_probe_torch
 import mosaic_unsupported_probe_torch
+import probe_sass_torch
+import probe_step_torch
+import encoder_probe_torch
 import bench_torch
 import chip_smoke
 sys.path.insert(0, "tests")
@@ -51,9 +56,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tfhe_omr_tpu"))
 assert not bad, bad
 for name in ("core.matrix", "core.retriever", "native", "parallel",
-             "parallel.mesh", "parallel.distributed", "ops.probes"):
+             "parallel.mesh", "parallel.distributed", "ops.probes", "entry",
+             "utils.golden"):
     assert "tfhe_omr_tpu_torch." + name in names, names
-assert len(names) >= 24, names
+assert len(names) >= 26, names
 print("imported", len(names))
 """
 
@@ -183,10 +189,11 @@ def test_scripts_refuse_to_run_on_the_host_unasked(script):
 def test_fp_margin_probe_smoke_on_cpu():
     """Every pertinent message lands in chunk 2 * clue_count of the second
     level's input, no other message does."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # one core, as the other smoke cases
     proc = subprocess.run(
         [sys.executable, os.path.join(ROOT, "benches", "fp_margin_probe_torch.py"),
          "--tiny", "--device", "cpu", "--batch", "6"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.splitlines()
     assert lines[-1] == "OK" and "  chunk 14: 6/6" in lines
@@ -212,3 +219,61 @@ def test_fp_criterion_probe_smoke_on_cpu():
                                   "--device", "cpu", "--stride", "128")
     assert out["mismatch_count"] == 0 and out["cases"] == 52
     assert out["accept_window"] == [0, 31, 480, 511]
+
+
+def test_step_and_encoder_probes_smoke_on_cpu():
+    """probe_step_torch.py: a line per stage (no clocks on the CPU) and a
+    record per level; encoder_probe_torch.py: a line per phase."""
+    out, proc = _first_line_json("benches/probe_step_torch.py", "--tiny", "--device",
+                                 "cpu", "--batch", "2", "--steps", "1")
+    assert out["level"] == 1 and out["stage"] == "digits_fwd" and out["share"] is None
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [r["stage"] for r in lines if r.get("level") == 2 and "stage" in r] == [
+        "digits_fwd", "staging", "mac", "monomial", "inv_acc", "barrier"]
+    assert [r["checked_samples"] for r in lines if "checked_samples" in r] == [2, 2]
+    assert lines[-1] == {"card": "cpu"}
+    out, proc = _first_line_json("benches/encoder_probe_torch.py", "--tiny", "--device",
+                                 "cpu", "--d", "40", "--reps", "1")
+    phases = [json.loads(line)["phase"] for line in proc.stdout.splitlines()[:-1]]
+    assert phases == ["warm_encoders", "idx_1ct", "idx_5ct_stream", "pay_host_prep",
+                      "pay_upload", "pay_encode"]
+    assert out["device"] == "cpu" and out["seconds"] >= 0
+
+
+def test_entry_main_refuses_to_run_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    proc = subprocess.run([sys.executable, "-m", "tfhe_omr_tpu_torch.entry"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and 'device="cpu"' in proc.stderr
+    assert proc.stdout == ""
+
+
+#: the test files that hold the port without jax (on the card's machine too)
+JAX_FREE_RUN = ["tests/test_torch_golden.py", "tests/test_torch_interchange.py",
+                "tests/test_torch_bucket_collision.py"]
+JAX_FREE_IMPORT = ["tests/test_torch_aux.py", "tests/test_torch_warm.py",
+                   "tests/test_torch_entry.py"]
+
+
+def test_new_test_files_need_no_jax(tmp_path):
+    """With ``jax``, ``jaxlib`` and the JAX package unimportable, the
+    golden, interchange and bucket-collision files pass (all but the case
+    marked ``jax_reference``) and the aux, warm and entry files collect."""
+    for name in ("jax", "jaxlib", "tfhe_omr_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is unimportable in this test')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}", OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+            "-p", "no:randomly", "-m", "not jax_reference"]
+    proc = subprocess.run([*base, *JAX_FREE_RUN], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert " passed" in proc.stdout and "failed" not in proc.stdout
+    proc = subprocess.run([*base, "--collect-only", *JAX_FREE_IMPORT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]

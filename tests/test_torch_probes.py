@@ -326,6 +326,37 @@ def test_rate_record_and_timer_on_cpu():
                                   probes.probe_i8dot_plain(a, b, 3).numpy())
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 2048, 2048, 256, 1),  # P2, 8 rounds on the card
+    (256, 384, 96, 128, 1),  # P5, 512
+    (1, 768, 192, 128, 2),  # P7, 16384
+    (2048, 48, 12, 128, 1),  # P9: k 12 padded to 32
+    (1, 48, 768, 128, 300),  # positive operands: the int32 sums wrap
+])
+def test_library_int_mm_equals_plain_at_the_probes_shapes(shape):
+    """``torch._int_mm`` a round (a loop over the groups of a batched dot),
+    k and m zero-padded where cuBLASLt needs it, sums what the probe
+    kernel's plain version sums, int32 wrapping included, with b row- or
+    column-major and through the graphed timer's callable (the loop on the
+    CPU); an n it cannot take raises."""
+    g, m, k, n, rounds = shape
+    lo = 64 if rounds > 100 else -128
+    gen = torch.Generator().manual_seed(m + k)
+    a = torch.randint(lo, 128, (g, m, k), generator=gen).to(torch.int8)
+    b = torch.randint(lo, 128, (g, k, n), generator=gen).to(torch.int8)
+    if g == 1:
+        a, b = a[0], b[0]
+    want = probes.probe_i8dot_plain(a, b, rounds)
+    if lo > 0:
+        assert not torch.equal(want.long(), rounds * (a.long() @ b.long()))
+    assert torch.equal(rates.library_int_mm(a, b, rounds), want)
+    assert torch.equal(rates.library_int_mm(a, b, rounds, b_col_major=True), want)
+    assert torch.equal(rates.library_int_mm_graphed(a, b, rounds, True)(), want)
+    assert rates.int_mm_k(k) % 16 == 0 and rates.int_mm_k(k) > 16
+    with pytest.raises(ValueError, match="_int_mm"):
+        rates.library_int_mm(a, b[..., :8], 1)
+
+
 # ------------------------------------------------------- the bench twins
 @pytest.mark.parametrize("bench,key", [
     ("vpu_probe", "gops"), ("vpu_peak_probe", "gops"),

@@ -27,6 +27,7 @@ one Python loop here.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +51,7 @@ from tfhe_omr_tpu_torch.ops.fused import (
     trace,
     trace_plain,
 )
+from tfhe_omr_tpu_torch.utils import build
 from tfhe_omr_tpu_torch.utils.build import resolve_device
 from tfhe_omr_tpu_torch.utils.timing import StageTimer, synchronize
 
@@ -259,6 +261,34 @@ class Detector:
             + self.ksk_f64.numel() * self.ksk_f64.element_size()
         )
 
+    # ----------------------------------------------------------------- warm
+    def warm(self, batch: int) -> dict:
+        """Pay before anything is timed what a first ``detect`` of ``batch``
+        messages pays once: build or load the kernel library, then one
+        detect of zero clues through K1, K2, K3 and K4, synchronised (the
+        allocator's first blocks, the kernels' first launches and their
+        shared-memory attributes). Counterpart of the JAX package's
+        ``Detector.warm``, whose lowered-program cache has no counterpart.
+
+        Returns ``{"device", "path", "build_s", "nvcc_s", "first_launch_s",
+        "batch"}``: seconds of the build (0 when loaded; ``nvcc_s`` is this
+        process's nvcc time) and of the warm detect. On the CPU the plain
+        path runs (``path: "plain"``) and nothing is built."""
+        return warm_detect([self], [batch])[0]
+
+    def warm_encoders(self, retrieval_params: RetrievalParams, total: int,
+                      chunk: int = 2048) -> dict:
+        """One chunk of each digest encoder (:meth:`encode_index_rows`,
+        :meth:`encode_payload_rows`) through K4 on zeros, at the chunk
+        shape a board of ``total`` messages gives (``min(chunk, total)``
+        rows), synchronised. Draws nothing from any numpy stream, so the
+        digests after it are the ones without it. Counterpart of the JAX
+        package's ``Detector.warm_encoders``.
+
+        Returns ``{"device", "path", "build_s", "nvcc_s", "rows", "index_s",
+        "payload_s"}``."""
+        return warm_encode([self], retrieval_params, [total], chunk)[0]
+
     # ------------------------------------------------------- digest encoder
     def _encode_chunk(self, pert: torch.Tensor, plain: torch.Tensor,
                       acc: torch.Tensor, fwd) -> torch.Tensor:
@@ -418,18 +448,19 @@ class Detector:
                                         weights, chunk, plain)
 
     def encode_payload_rows(self, retrieval_params: RetrievalParams, pert,
-                            payloads: np.ndarray, weights: np.ndarray,
-                            chunk: int = 2048, plain: bool = False) -> torch.Tensor:
+                            payloads, weights, chunk: int = 2048,
+                            plain: bool = False) -> torch.Tensor:
         """The part of the payload digests that some messages of a board
         contribute: ``pert`` (rows, 2, N2), ``payloads`` (rows, plen) and
         ``weights`` (kct, cmb, rows) hold those messages' pertinency cts,
-        payloads and columns of :func:`payload_weights`. The parts of
-        disjoint row ranges add up (mod q2) to the whole board's digests."""
+        payloads and columns of :func:`payload_weights` (numpy arrays or
+        tensors). The parts of disjoint row ranges add up (mod q2) to the
+        whole board's digests."""
         rp = retrieval_params
         pert = self._on_device(pert)
         rows = pert.shape[0]
         weights = self._on_device(weights)
-        pay = self._on_device(np.asarray(payloads, dtype=np.int64))
+        pay = self._on_device(payloads)
         kct = rp.cmb_cipher_count
         accs = torch.zeros((kct, 2, rp.polynomial_size), dtype=torch.int64,
                            device=self.device)
@@ -443,6 +474,73 @@ class Detector:
                 )
                 accs[k] = self._encode_chunk(pert[s:e], poly, accs[k], fwd)
         return accs
+
+
+def _warm_status(det: Detector) -> dict:
+    """Build or load the kernel library (a card only); the keys and the
+    kernels' tables are in place since the detector was made."""
+    t0 = time.perf_counter()
+    on_card = det.device.type == "cuda"
+    if on_card:
+        build.library()
+    return {"device": str(det.device), "path": "kernels" if on_card else "plain",
+            "build_s": time.perf_counter() - t0, "nvcc_s": build.build_seconds}
+
+
+def _sync_all(dets: list[Detector], status: list[dict], key: str, t0: float) -> None:
+    """Wait for each detector's device in turn; ``status[i][key]`` is the
+    seconds from ``t0`` to that device's synchronisation."""
+    for st, det in zip(status, dets):
+        synchronize(det.device)
+        st[key] = time.perf_counter() - t0
+
+
+def warm_detect(dets: list[Detector], sizes: list[int]) -> list[dict]:
+    """:meth:`Detector.warm` of ``dets[i]`` at ``sizes[i]`` messages, every
+    detector's zero-clue detect queued before anything waits, so that
+    several devices warm side by side. One dict each, in ``dets``' order;
+    a size of 0 launches nothing."""
+    status = [_warm_status(det) for det in dets]
+    t0 = time.perf_counter()
+    for det, size in zip(dets, sizes):
+        if size:
+            p = det.ctx.params
+            det.detect(ClueBatch(
+                torch.zeros((size, det._n0), dtype=torch.int64, device=det.device),
+                torch.zeros((size, p.clue_count), dtype=torch.int64, device=det.device)))
+    _sync_all(dets, status, "first_launch_s", t0)
+    for st, size in zip(status, sizes):
+        st["batch"] = size
+    return status
+
+
+def warm_encode(dets: list[Detector], retrieval_params: RetrievalParams,
+                totals: list[int], chunk: int = 2048) -> list[dict]:
+    """:meth:`Detector.warm_encoders` of ``dets[i]`` for a board (or shard)
+    of ``totals[i]`` messages: every detector's index chunk is queued
+    before anything waits, then every payload chunk. One dict each."""
+    rp = retrieval_params
+    status = [_warm_status(det) for det in dets]
+    rows = [min(chunk, total) for total in totals]
+    perts = [torch.zeros((r, 2, rp.polynomial_size), dtype=torch.int64,
+                         device=det.device) for det, r in zip(dets, rows)]
+    t0 = time.perf_counter()
+    for det, r, pert in zip(dets, rows, perts):
+        if r:
+            det.encode_index_rows(
+                rp, pert, np.zeros((r, rp.segment_per_cipher), dtype=np.int64), 0, chunk)
+    _sync_all(dets, status, "index_s", t0)
+    t0 = time.perf_counter()
+    for det, r, pert in zip(dets, rows, perts):
+        if r:
+            det.encode_payload_rows(
+                rp, pert, np.zeros((r, rp.payload_length), dtype=np.int64),
+                np.zeros((rp.cmb_cipher_count, rp.cmb_count_per_cipher, r),
+                         dtype=np.int64), chunk)
+    _sync_all(dets, status, "payload_s", t0)
+    for st, r in zip(status, rows):
+        st["rows"] = r
+    return status
 
 
 def draw_index_buckets(rp: RetrievalParams, total: int,

@@ -347,11 +347,16 @@ def detection_key_from_numpy(bsk1, ksk_limbs, bsk2, trace_k, ctx: OmrContext,
     def t(a):
         return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
 
-    planes = np.asarray(ksk_limbs).astype(np.int64)
-    mat = sum(planes[k] << (7 * k) for k in range(planes.shape[0]))
     b1, b2, tk = t(bsk1), t(bsk2), t(trace_k)
     return DetectionKey(
-        bsk1=b1, bsk1_sh=ctx.f1.shoup_t(b1), ksk=t(mat),
+        bsk1=b1, bsk1_sh=ctx.f1.shoup_t(b1), ksk=t(ksk_from_planes(ksk_limbs)),
         bsk2=b2, bsk2_sh=ctx.f2.shoup_t(b2),
         trace_k=tk, trace_k_sh=ctx.f2.shoup_t(tk),
     )
+
+
+def ksk_from_planes(planes) -> np.ndarray:
+    """The key-switching matrix of the JAX package's int8 7-bit limb planes
+    (limbs, rows, cols): sum_k planes[k] << 7k, int64."""
+    planes = np.asarray(planes).astype(np.int64)
+    return sum(planes[k] << (7 * k) for k in range(planes.shape[0]))

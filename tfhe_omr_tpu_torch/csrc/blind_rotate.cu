@@ -88,6 +88,14 @@
 // compares, shifts, address arithmetic, shared-memory accesses share the
 // issue slots): every cut of them (lazy butterflies, word-size digit
 // rounding, the ring mask) showed in the time.
+// Profiled instantiations (BrProfiled<BrL1|BrL2, true|false>, through
+// omr_blind_rotate_profiled in blind_rotate_profiled.cu, a source of its own
+// so that nvcc builds them beside these): the same template with stage clocks
+// (blind_rotate.cuh BrStage) that split a step into digits and forward
+// passes, key staging, multiply-accumulate, monomial, inverse passes and
+// the step's barriers; benches/probe_step_torch.py reads them. The stamps
+// are compiled only into these four, so the production kernels are
+// unchanged, and the outputs are the production ones bit for bit.
 // 512 threads cap a thread at 128 registers: ptxas leaves 20 bytes of
 // spill at the first level and 76 at the second (the row accumulators are
 // live across the NTT passes); 256 threads a block had no spill at the
@@ -95,54 +103,10 @@
 // and 210.5 ms then), so the spill stays.
 #include "blind_rotate.cuh"
 
-//                 W    logN  d  logB  q                    S  T    DJ RLOG NST
-typedef BrConfig<u32, 10, 4, 5, 134215681ull, 4, 512, 4, 5, 8> BrL1;
-typedef BrConfig<u64, 11, 6, 7, 1125899906826241ull, 1, 512, 2, 4, 4> BrL2;
-// the small test preset (core/params.py OmrParameters.tiny)
-typedef BrConfig<u32, 8, 5, 4, 33551873ull, 4, 128, 5, 4, 8> BrTinyL1;
-typedef BrConfig<u64, 9, 7, 5, 274877905921ull, 1, 128, 1, 3, 4> BrTinyL2;
-
-struct BrArgs {
-  const int64_t* acc_in;
-  int64_t* acc_out;
-  const int64_t* amounts;
-  int64_t n_msgs;
-  int n_steps;
-  const void* key;
-  const void* mono;
-  const int* orders;
-  const void* tw_fwd;
-  const void* tw_inv;
-  uint64_t n_inv, n_inv_sh;
-  int log_n, d, log_b;
-  int64_t q;
-  int blocks;
-  void* stream;
-};
-
-template <class C>
-static bool matches(const BrArgs& a) {
-  return a.log_n == C::LOG_N && a.d == C::D && a.log_b == C::LOG_B && (u64)a.q == C::F::Q;
-}
-
-template <class C>
-static int launch(const BrArgs& a) {
-  typedef typename C::W W;
-  cudaError_t err = allow_smem(blind_rotate_kernel<C>, C::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (((int64_t)a.blocks * C::S) < a.n_msgs || a.n_steps > INT32_MAX / C::PLANES)
-    return (int)cudaErrorInvalidValue;
-  OMR_LAUNCH(blind_rotate_kernel<C>, (unsigned)a.blocks, C::T, C::SMEM_BYTES, a.stream,
-             (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
-             (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
-             (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh);
-  return (int)cudaGetLastError();
-}
-
 // The layout constants of the instantiation for (log_n, q, d, log_b):
 // out = {S, DJ, RLOG, word bytes, TW_FWD, TW_INV}; non-zero if there is none.
-// The typedefs above are the only table of them: ops/fused.py br_layout asks
-// here when it lays a key out.
+// The typedefs of blind_rotate.cuh are the only table of them: ops/fused.py
+// br_layout asks here when it lays a key out.
 extern "C" int omr_blind_rotate_config(int log_n, int64_t q, int d, int log_b, int* out) {
 #define OMR_BR_TRY(C)                                                        \
   if (log_n == C::LOG_N && (u64)q == C::F::Q && d == C::D && log_b == C::LOG_B) { \

@@ -1,6 +1,7 @@
 // Device code of the paired blind rotation (see blind_rotate.cu for the
 // design note): the configuration, what its NTT passes read and write
-// (ntt_passes.cuh) and the kernel template.
+// (ntt_passes.cuh) and the kernel template; then the configurations of the
+// reference and small rings and their launch.
 #pragma once
 
 #include "ntt_passes.cuh"
@@ -25,6 +26,8 @@ struct BrConfig : NttPlan<W_, LOG_N_, Q_, RLOG_> {
   static constexpr int N = Plan::N, NP = Plan::NP, TW_FWD = Plan::TW_FWD;
   static constexpr int D = D_, LOG_B = LOG_B_;
   static constexpr int S = S_, T = T_, DJ = DJ_, NST = NST_;
+  static constexpr bool PROFILED = false;     // see BrProfiled
+  static constexpr bool PLANE_STAMPS = false;  // see BrProfiled
   static constexpr int VEC = 2;               // consecutive slots per thread group
   static constexpr int G = N / (VEC * T);     // slot groups per thread
   static constexpr int JP = D / DJ;           // digit passes per step
@@ -73,6 +76,63 @@ struct BrConfig : NttPlan<W_, LOG_N_, Q_, RLOG_> {
   static __device__ __forceinline__ W digit(W uh, int j) {
     const int dj = (int)((uh >> (LOG_B * j)) & (W)((1u << LOG_B) - 1)) - (int)HALF_B;
     return dj < 0 ? (W)Q_ - (W)(-dj) : (W)dj;
+  }
+};
+
+// ------------------------------------------------------ profiled steps
+// The stages of a CMUX step that a profiled instantiation times apart: the
+// digit and forward passes (BrDigits into fwd_ntt, its own barriers
+// included); the key staging (the cp.async wait for a plane, its reads from
+// the ring, the next plane's copy); the multiply-accumulate; the monomial
+// stage; the inverse passes and the accumulate (BrAccumulate, their
+// barriers included); the step loop's own barriers. ops/fused.py BR_STAGES
+// names them in this order.
+enum BrStage { BR_DIGITS_FWD, BR_STAGING, BR_MAC, BR_MONOMIAL, BR_INV_ACC, BR_BARRIER, BR_STAGES };
+
+// A configuration whose kernel reads clock64() at every stage boundary of
+// every step, in thread 0 of each block, and adds each delta to its block's
+// row of br_stage_clocks (blocks, BR_STAGES). Thread 0's view: a stage's
+// time is from the end of the stage before it to thread 0's end of this one,
+// so where the other threads lag, the barrier that waits for them shows it.
+// The stamps cost time of their own (two a key plane inside the
+// multiply-accumulate): benches/probe_step_torch.py prints the production
+// kernel's time beside the profiled one's. (A stamp in every thread, with
+// only thread 0's add predicated, cost more.) With PLANES false the two
+// stamps a key plane are left out: the key staging is then counted in
+// BR_MAC (BR_STAGING stays 0), and a digit pass has one stamp around its
+// whole multiply-accumulate, so the other stages are less disturbed. The
+// production configurations have PROFILED false, and every stamp below is
+// a no-op for them: their code is the same as without this.
+template <class C, bool PLANES = true>
+struct BrProfiled : C {
+  static constexpr bool PROFILED = true;
+  static constexpr bool PLANE_STAMPS = PLANES;
+};
+
+// The clocks buffer of the profiled launch in flight on this device.
+static __device__ long long* br_stage_clocks;
+
+template <bool ON>
+struct StageClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void lap(int) {}
+};
+template <>
+struct StageClock<true> {
+  long long last;
+  unsigned long long* row;
+  __device__ __forceinline__ void start() {
+    if (threadIdx.x == 0) {
+      row = reinterpret_cast<unsigned long long*>(br_stage_clocks) + (size_t)blockIdx.x * BR_STAGES;
+      last = clock64();
+    }
+  }
+  __device__ __forceinline__ void lap(int stage) {
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      atomicAdd(row + stage, (unsigned long long)(now - last));  // RED: nothing waits
+      last = now;
+    }
   }
 };
 
@@ -188,6 +248,8 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
 #pragma unroll
     for (int v = 0; v < VEC; ++v) ord[g][v] = orders[(g * C::T + tid) * VEC + v];
   __syncthreads();
+  StageClock<C::PROFILED> clk;
+  clk.start();
 
   for (int step = 0; step < n_steps; ++step) {
     W p[G][S][3][2][VEC];
@@ -204,8 +266,12 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
 
 #pragma unroll 1
     for (int jp = 0; jp < C::JP; ++jp) {
-      if (jp > 0) __syncthreads();  // the last pass's digits have been read
+      if (jp > 0) {
+        __syncthreads();  // the last pass's digits have been read
+        clk.lap(BR_BARRIER);
+      }
       fwd_ntt<C, C::T>(S * DJ * 2, tw_f, BrDigits<C>{sm + C::OFF_ACC, jp * DJ}, digits, digits);
+      clk.lap(BR_DIGITS_FWD);
       // multiply-accumulate against the three RGSW rows, lazily: one
       // reduction per (row, output) and pass
 #pragma unroll
@@ -234,6 +300,7 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
                                    C::pad((g * C::T + tid) * VEC + v)];
 #pragma unroll
             for (int o = 0; o < 2; ++o) {
+              if constexpr (C::PLANE_STAMPS) clk.lap(BR_MAC);
               cp_async_wait<NST - 3>();
               const W* plane = ring + (consumed & (NST - 1)) * N;
               W kv[G][VEC];
@@ -243,6 +310,7 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
                 for (int v = 0; v < VEC; ++v) kv[g][v] = plane[(g * C::T + tid) * VEC + v];
               ++consumed;
               stage_next();
+              if constexpr (C::PLANE_STAMPS) clk.lap(BR_STAGING);
 #pragma unroll
               for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -263,6 +331,7 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
                 p[g][s][r][o][v] =
                     Wide::template reduce<C::MAC_TERM_BITS>(acc[g][s][o][v]);
       }
+      clk.lap(BR_MAC);
     }
 
     // row t times NTT(X^{a_t}) - 1 (a lookup in the psi-power table at
@@ -290,9 +359,12 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
         }
       }
     }
+    clk.lap(BR_MONOMIAL);
     __syncthreads();
+    clk.lap(BR_BARRIER);
     inv_ntt<C, C::T>(S * 2, tw_i, n_inv, n_inv_sh, BrProducts<C>{sm + C::OFF_DIG},
                      BrProducts<C>{sm + C::OFF_DIG}, BrAccumulate<C>{sm + C::OFF_ACC});
+    clk.lap(BR_INV_ACC);
   }
   cp_async_wait<0>();
 
@@ -303,4 +375,52 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
       acc_out[(msg0 + s) * 2 * N + r] =
           (i64)sm[C::OFF_ACC + (s * 2 + r / N) * C::NP + C::pad(r % N)];
   }
+}
+
+// ------------------------------------------------------------- launch
+// The host side that blind_rotate.cu (the production and small-preset
+// instantiations) and blind_rotate_profiled.cu (the profiled ones) share:
+// the configurations and one launch of a configuration.
+//                 W    logN  d  logB  q                    S  T    DJ RLOG NST
+typedef BrConfig<u32, 10, 4, 5, 134215681ull, 4, 512, 4, 5, 8> BrL1;
+typedef BrConfig<u64, 11, 6, 7, 1125899906826241ull, 1, 512, 2, 4, 4> BrL2;
+// the small test preset (core/params.py OmrParameters.tiny)
+typedef BrConfig<u32, 8, 5, 4, 33551873ull, 4, 128, 5, 4, 8> BrTinyL1;
+typedef BrConfig<u64, 9, 7, 5, 274877905921ull, 1, 128, 1, 3, 4> BrTinyL2;
+
+struct BrArgs {
+  const int64_t* acc_in;
+  int64_t* acc_out;
+  const int64_t* amounts;
+  int64_t n_msgs;
+  int n_steps;
+  const void* key;
+  const void* mono;
+  const int* orders;
+  const void* tw_fwd;
+  const void* tw_inv;
+  uint64_t n_inv, n_inv_sh;
+  int log_n, d, log_b;
+  int64_t q;
+  int blocks;
+  void* stream;
+};
+
+template <class C>
+static bool matches(const BrArgs& a) {
+  return a.log_n == C::LOG_N && a.d == C::D && a.log_b == C::LOG_B && (u64)a.q == C::F::Q;
+}
+
+template <class C>
+static int launch(const BrArgs& a) {
+  typedef typename C::W W;
+  cudaError_t err = allow_smem(blind_rotate_kernel<C>, C::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (((int64_t)a.blocks * C::S) < a.n_msgs || a.n_steps > INT32_MAX / C::PLANES)
+    return (int)cudaErrorInvalidValue;
+  OMR_LAUNCH(blind_rotate_kernel<C>, (unsigned)a.blocks, C::T, C::SMEM_BYTES, a.stream,
+             (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
+             (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
+             (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh);
+  return (int)cudaGetLastError();
 }

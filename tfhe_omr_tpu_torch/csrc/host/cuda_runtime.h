@@ -31,6 +31,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaMemcpyHostToDevice = 1 };
 template <class K> inline int cudaFuncSetAttribute(K, int, int) { return 0; }
 template <class K> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return 0; }
 inline int cudaGetLastError() { return 0; }
@@ -42,6 +43,24 @@ inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b)
   return (unsigned long long)(((unsigned __int128)a * b) >> 64);
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T>
+inline int cudaMemcpyToSymbolAsync(T& symbol, const void* src, size_t count, size_t offset, int,
+                                   cudaStream_t) {
+  memcpy(reinterpret_cast<char*>(&symbol) + offset, src, count);
+  return 0;
+}
+// a stand-in clock: each read in a thread is one later than the last, so
+// every stage a profiled kernel stamps counts at least one
+inline long long clock64() {
+  static thread_local long long ticks = 0;
+  return ++ticks;
+}
+// single-threaded where the kernels use it (thread 0 of a block)
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p = old + v;
+  return old;
+}
 
 alignas(16) inline unsigned char smem_raw[232448];
 inline std::barrier<>* omr_block_barrier = nullptr;

@@ -189,13 +189,32 @@ def blind_rotate_plain(acc: torch.Tensor, amounts: torch.Tensor,
     return out.permute(2, 1, 0).contiguous()
 
 
+#: the stages of a CMUX step that a profiled launch times apart, in the
+#: order of ``csrc/blind_rotate.cuh BrStage``
+BR_STAGES = ("digits_fwd", "staging", "mac", "monomial", "inv_acc", "barrier")
+
+
 def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
-                 key: BlindRotateKey) -> torch.Tensor:
+                 key: BlindRotateKey, stage_clocks: torch.Tensor | None = None,
+                 plane_stamps: bool = True) -> torch.Tensor:
     """The paired CMUX chain on every sample: acc (M, 2, N) coefficient
     domain, amounts (2*n_steps, M) in [0, 2N) -> (M, 2, N). Any M: the
     kernel serves ``layout.s`` samples per block and masks the rest of the
-    last block."""
+    last block.
+
+    With ``stage_clocks``, an int64 tensor of (blocks, len(BR_STAGES)) on
+    the card (blocks: :func:`n_blocks` of M and ``key.layout.s``), the
+    profiled instantiation of the reference rings runs instead and adds the
+    SM clocks that thread 0 of each block spent in each stage of all its
+    steps (:data:`BR_STAGES`) to it; its output is the same. It counts as
+    ``<key name>_profiled`` in ``build.LAUNCHES``. ``plane_stamps=False``
+    leaves out the two stamps of every key plane: "staging" stays 0 and is
+    counted in "mac", at less cost to the other stages. The plain path has
+    no clocks: a CPU tensor with ``stage_clocks`` raises."""
     if build.device_kind(acc) == "cpu":
+        if stage_clocks is not None:
+            raise ValueError("blind_rotate: stage clocks come from the kernel; "
+                             "the plain path has none")
         return blind_rotate_plain(acc, amounts, key)
     ntt, g = key.ntt, key.gadget
     n_msgs = acc.shape[0]
@@ -209,19 +228,29 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     build.require_cuda("blind_rotate", acc, amounts)
     build.require_cuda("blind_rotate", acc, key.keys[0], key.mono, key.tw_fwd,
                        key.tw_inv, key.orders, dtypes=(torch.int64, torch.int32))
+    blocks = n_blocks(n_msgs, key.layout.s)
+    if stage_clocks is not None:
+        build.require_cuda("blind_rotate", acc, stage_clocks)
+        if stage_clocks.shape != (blocks, len(BR_STAGES)):
+            raise ValueError(f"blind_rotate: stage clocks {tuple(stage_clocks.shape)}, the "
+                             f"launch has {blocks} blocks of {len(BR_STAGES)} stages")
     if n_msgs == 0:
         return out
     lib = build.library()
-    with torch.cuda.device(acc.device):
-        rc = lib.omr_blind_rotate(
-            build.ptr(acc), build.ptr(out), build.ptr(amounts), n_msgs,
+    args = (build.ptr(acc), build.ptr(out), build.ptr(amounts), n_msgs,
             key.n_steps, build.ptr(key.keys[0]), build.ptr(key.mono),
             build.ptr(key.orders), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
             key.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
-            n_blocks(n_msgs, key.layout.s), build.stream_of(acc),
-        )
-    build.check(lib, rc, key.name)
-    build.LAUNCHES[key.name] += 1
+            blocks, build.stream_of(acc))
+    with torch.cuda.device(acc.device):
+        if stage_clocks is None:
+            rc = lib.omr_blind_rotate(*args)
+        else:
+            rc = lib.omr_blind_rotate_profiled(*args, build.ptr(stage_clocks),
+                                               int(plane_stamps))
+    name = key.name if stage_clocks is None else f"{key.name}_profiled"
+    build.check(lib, rc, name)
+    build.LAUNCHES[name] += 1
     return out
 
 

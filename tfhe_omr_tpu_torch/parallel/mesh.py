@@ -38,6 +38,8 @@ from tfhe_omr_tpu_torch.core.detector import (
     Detector,
     draw_index_buckets,
     payload_weights,
+    warm_detect,
+    warm_encode,
 )
 from tfhe_omr_tpu_torch.core.sender import ClueBatch
 from tfhe_omr_tpu_torch.parallel import distributed
@@ -187,6 +189,29 @@ class ShardedDetector:
                 parts[i][a - lo:e - lo] = out
         b = self.bounds(total)
         return RankRows(parts, b[self.mesh.rank * len(self.replicas)], total)
+
+    def _sizes(self, total: int) -> list[int]:
+        """This process's shard sizes of ``total`` messages, one per
+        replica (0 for an empty shard)."""
+        b = self.bounds(total)
+        first = self.mesh.rank * len(self.replicas)
+        return [b[first + i + 1] - b[first + i] for i in range(len(self.replicas))]
+
+    def warm(self, batch: int) -> list[dict]:
+        """:meth:`Detector.warm` on every local replica at its shard's size
+        of a batch of ``batch`` messages (:meth:`bounds`): every replica's
+        zero-clue detect is queued before anything waits, as in
+        :meth:`detect`. One dict per local device, in the replicas' order;
+        ``first_launch_s`` is from the first queued detect to that device's
+        synchronisation (the devices run side by side)."""
+        return warm_detect(self.replicas, self._sizes(batch))
+
+    def warm_encoders(self, retrieval_params, total: int, chunk: int = 2048) -> list[dict]:
+        """:meth:`Detector.warm_encoders` on every local replica at the
+        chunk shape its shard of a board of ``total`` messages gives, every
+        replica's work queued before anything waits. One dict per local
+        device; draws nothing from any numpy stream."""
+        return warm_encode(self.replicas, retrieval_params, self._sizes(total), chunk)
 
     def gather(self, pertinency) -> np.ndarray:
         """The whole stack on the host of every rank (a collective). For

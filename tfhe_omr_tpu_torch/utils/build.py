@@ -154,6 +154,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, args in (
         ("omr_ntt", _NTT_ARGS),
         ("omr_blind_rotate", _BR_ARGS),
+        ("omr_blind_rotate_profiled", _BR_ARGS + [_P, _I32]),
         ("omr_trace", _TRACE_ARGS),
         ("omr_probe_chain", _PROBE_CHAIN_ARGS),
         ("omr_probe_mac", _PROBE_MAC_ARGS),
@@ -165,6 +166,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.omr_blind_rotate_config, lib.omr_trace_config):
         fn.argtypes = [_I32, _I64, _I32, _I32, _P]
         fn.restype = ctypes.c_int
+    lib.omr_blind_rotate_stages.argtypes = []
+    lib.omr_blind_rotate_stages.restype = ctypes.c_int
     lib.omr_ntt_config.argtypes = [_I32, _I64, _P]
     lib.omr_ntt_config.restype = ctypes.c_int
     lib.omr_error_string.argtypes = [ctypes.c_int]

@@ -24,6 +24,8 @@ import subprocess
 
 import torch
 
+from tfhe_omr_tpu_torch.utils.timing import median_ms
+
 SPEC_PER_CLK_SM = {"int32": 128, "int32_mul": 64, "f32_fma": 128, "int8_mma": 8192}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -105,11 +107,119 @@ def rate_record(variant: str, counted: float, ms: float, unit: str, device: torc
 
 
 def library_i8dot(af: torch.Tensor, bf: torch.Tensor, rounds: int) -> torch.Tensor:
-    """The sums of ``probe_i8dot`` by the library: one float32 ``torch.bmm``
-    a round (exact while every sum stays below 2^24), added into an int32
-    total (wrapping)."""
+    """The sums of ``probe_i8dot`` by a float32 library product: one
+    ``torch.bmm`` a round (exact while every sum stays below 2^24), added
+    into an int32 total (wrapping). Not the function the kernel computes
+    (an int8 product); :func:`library_int_mm` is."""
     acc = torch.zeros((af.shape[0], af.shape[1], bf.shape[2]), dtype=torch.int32,
                       device=af.device)
     for _ in range(rounds):
         acc += torch.bmm(af, bf).to(torch.int32)
     return acc
+
+
+def int_mm_k(k: int) -> int:
+    """The depth ``torch._int_mm`` takes for a product of depth ``k``: above
+    16 (torch's condition) and a multiple of 16 (cuBLASLt refuses an int8
+    operand whose rows are not 16-byte aligned: k = 24 is refused on an
+    H100); zero rows and columns add nothing to the sums."""
+    return max(32, -(-k // 16) * 16)
+
+
+def _int_mm_operands(a: torch.Tensor, b: torch.Tensor, b_col_major: bool):
+    """(a3, b3, m): the operands of :func:`library_int_mm` as (g, m', k')
+    and (g, k', n), zero-padded; ``b_col_major`` lays each b3[i] out
+    column-major (k-contiguous), the layout cuBLASLt's int8 kernels read."""
+    a3 = a if a.dim() == 3 else a.unsqueeze(0)
+    b3 = b if b.dim() == 3 else b.unsqueeze(0)
+    m, k = a3.shape[1:]
+    n = b3.shape[2]
+    if n % 16:
+        raise ValueError(f"torch._int_mm needs n a multiple of 16, got {n}")
+    pad_k, pad_m = int_mm_k(k) - k, -m % 128
+    if pad_k or pad_m:
+        a3 = torch.nn.functional.pad(a3, (0, pad_k, 0, pad_m))
+        b3 = torch.nn.functional.pad(b3, (0, 0, 0, pad_k))
+    if b_col_major:
+        b3 = b3.transpose(1, 2).contiguous().transpose(1, 2)
+    return a3.contiguous(), b3, m
+
+
+def _int_mm_rounds(a3: torch.Tensor, b3: torch.Tensor, acc: torch.Tensor,
+                   rounds: int) -> None:
+    for _ in range(rounds):
+        for i in range(a3.shape[0]):
+            acc[i] += torch._int_mm(a3[i], b3[i])
+
+
+def library_int_mm(a: torch.Tensor, b: torch.Tensor, rounds: int,
+                   b_col_major: bool = False) -> torch.Tensor:
+    """The sums of ``probe_i8dot`` by the library's int8 product:
+    ``torch._int_mm`` (2-D int8 x int8 -> int32) a round, added into an
+    int32 total (wrapping), k zero-padded to :func:`int_mm_k`. torch has no
+    batched int8 product, so a batched dot (g, m, k) @ (g, k, n) is a loop
+    of g ``_int_mm`` calls a round, not one call. m is zero-padded to a
+    multiple of 128 (cuBLASLt on an H100 refused m = 48 at every k tried,
+    24 and 32; m = 128, 384, 768 and 2048 ran) and n must be a multiple of
+    16 (16-byte rows); other shapes raise. ``b_col_major`` hands b to the
+    library column-major (the copy is made before the first call)."""
+    a3, b3, m = _int_mm_operands(a, b, b_col_major)
+    acc = torch.zeros((a3.shape[0], a3.shape[1], b3.shape[2]), dtype=torch.int32,
+                      device=a.device)
+    _int_mm_rounds(a3, b3, acc, rounds)
+    return acc[:, :m].reshape(a.shape[:-1] + b.shape[-1:])
+
+
+#: calls captured in one CUDA graph by :func:`library_int_mm_graphed`, at most
+#: (a graph of one round if a round has more)
+GRAPH_CALLS = 1024
+
+
+def library_int_mm_graphed(a: torch.Tensor, b: torch.Tensor, rounds: int,
+                           b_col_major: bool = False):
+    """A callable that returns :func:`library_int_mm` ``(a, b, rounds,
+    b_col_major)``. On a card the calls of ``per`` rounds (the largest
+    divisor of ``rounds`` with ``per * g <= GRAPH_CALLS``, at least 1) are
+    captured once in a CUDA graph, and the callable zeroes the total and
+    replays the graph ``rounds / per`` times: its time is the card's, not
+    that of the host's launches (some 20-30 us a call on an H100 machine,
+    more than a small product takes). On the CPU it runs the loop."""
+    if a.device.type != "cuda":
+        return lambda: library_int_mm(a, b, rounds, b_col_major)
+    a3, b3, m = _int_mm_operands(a, b, b_col_major)
+    g = a3.shape[0]
+    per = max([d for d in range(1, rounds + 1) if rounds % d == 0 and d * g <= GRAPH_CALLS],
+              default=1)
+    acc = torch.zeros((g, a3.shape[1], b3.shape[2]), dtype=torch.int32, device=a.device)
+    side = torch.cuda.Stream(a.device)
+    side.wait_stream(torch.cuda.current_stream(a.device))
+    with torch.cuda.stream(side):  # the library's first calls, outside the capture
+        _int_mm_rounds(a3, b3, torch.zeros_like(acc), 1)
+    torch.cuda.current_stream(a.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _int_mm_rounds(a3, b3, acc, per)
+
+    def run() -> torch.Tensor:
+        acc.zero_()
+        for _ in range(rounds // per):
+            graph.replay()
+        return acc[:, :m].reshape(a.shape[:-1] + b.shape[-1:])
+
+    return run
+
+
+def library_int_mm_ms(a: torch.Tensor, b: torch.Tensor, rounds: int,
+                      reps: int = 3) -> dict:
+    """``{"b_row_major": ms, "b_col_major": ms}``: the median time of
+    :func:`library_int_mm_graphed` with b in each layout, each first held
+    equal to ``rounds`` times the product (int32 wrapping); raises if not."""
+    one = torch.matmul(a.double(), b.double()).long()
+    want = ((one * rounds + 2**31) % 2**32 - 2**31).to(torch.int32)
+    out = {}
+    for layout, col in (("b_row_major", False), ("b_col_major", True)):
+        fn = library_int_mm_graphed(a, b, rounds, col)
+        if not torch.equal(fn(), want):  # also the warm call
+            raise AssertionError(f"torch._int_mm ({layout}) != the plain product")
+        out[layout] = median_ms(fn, a.device, reps, warm=False)
+    return out

@@ -58,12 +58,15 @@ Phases (each prints its result; any failure exits non-zero):
      at the small preset: sharded detect and both encoders equal to one card.
   9. the unit-rate probes (csrc/probes.cu, the twins of the TPU probes of
      benches/): probe_chain for every op, type and stream count, probe_mac
-     and probe_i8dot (mma.sync s8) at the probes' shapes, one of them with
-     int32 sums that wrap, each bit-equal to its plain version at small
-     loop counts; then, with the launch counts set to 0, one short timed
-     run of each (the int32 multiply chains and the MAC at (256, 1024) with
-     4 and 16 streams, mulhi, int64 multiply, float32 FMA, the int8 dot at
-     (256, 384, 96, 128)), every rate beside its unit's spec rate at the
+     and probe_i8dot (wgmma s8 from TMA-fed shared memory) at the probes'
+     shapes, one of them with int32 sums that wrap, each bit-equal to its
+     plain version at small loop counts, and the int8 dot also at each of
+     P2, P5, P7 and P9's shapes and full rounds against rounds x its float64
+     product, wrapped (utils/rates.py DOT_PROBES, dot_rounds); then, with
+     the launch counts set to 0, one short timed run of each (the int32 multiply chains and the
+     MAC at (256, 1024) with 4 and 16 streams, mulhi, int64 multiply,
+     float32 FMA, the int8 dot at P5's (256, 384, 96, 128) x 512 and at P2,
+     P7 and P9's shapes and rounds), every rate beside its unit's spec rate at the
      card's top SM clock and each run's bound, the least time at the spec
      rates of its least instruction mix (tfhe_omr_tpu_torch/utils/rates.py:
      int32 multiplies 64 and int32 instructions 128 a clock an SM); the
@@ -74,7 +77,9 @@ Phases (each prints its result; any failure exits non-zero):
      (torch._int_mm, k zero-padded, a loop over the groups of a batched dot)
      at the TPU dot probes' shapes and rounds (P2, P5, P7, P9), its calls
      replayed from a CUDA graph so that the time is the card's, with b
-     row-major and column-major, each held equal to plain;
+     row-major and column-major, each held equal to plain, and one line a
+     probe with C3's time beside both, their ratio and each one's share of
+     the bound;
   10. the pinned golden vectors (tests/golden/golden_vectors.npz) through the
      kernels, no jax: one CMUX step of each level through K1 and K2, the
      trace through K3, both NTTs and their inverses through K5 and K4, each
@@ -146,10 +151,6 @@ PROBE_DOTS = [
     (1, 384, 96, 128, 2), (1, 768, 192, 128, 2), (1, 384, 768, 128, 8192),
 ]
 PROBE_DOT_MAIN = (256, 384, 96, 128, 512)
-# the library's int8 product (torch._int_mm) at the TPU dot probes' shapes
-# and rounds, (g, m, k, n, rounds)
-LIBRARY_DOTS = {"P2": (1, 2048, 2048, 256, 8), "P5": (256, 384, 96, 128, 512),
-                "P7": (1, 768, 192, 128, 16384), "P9": (2048, 48, 12, 128, 1)}
 
 # (counter name, JSON name, source, the TPU kernel it replaces)
 KERNELS = [
@@ -495,7 +496,7 @@ def phase_probes(gpu, results):
     returns those runs' launches and each kernel's record."""
     from tfhe_omr_tpu_torch.ops import probes
     from tfhe_omr_tpu_torch.utils import build, rates
-    from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from tfhe_omr_tpu_torch.utils.timing import graphed_ms, median_ms
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
@@ -550,7 +551,7 @@ def phase_probes(gpu, results):
             raise AssertionError("the wrapping case does not wrap")
         errs.append(held(f"probe_i8dot {(g, m, k, n)} x{rounds}",
                          probes.probe_i8dot(a, b, rounds), want))
-    say(f"[probes] probe_i8dot (mma.sync s8) bit-equal to plain at {len(PROBE_DOTS)} "
+    say(f"[probes] probe_i8dot (wgmma s8, TMA) bit-equal to plain at {len(PROBE_DOTS)} "
         "shapes (g, m, k, n, rounds): " + ", ".join(str(d) for d in PROBE_DOTS)
         + "; the last one's int32 sums wrap")
     g, m, k, n, _ = PROBE_DOT_MAIN
@@ -610,13 +611,35 @@ def phase_probes(gpu, results):
     runs.append((f"i8dot_{g}x{m}x{k}x{n}_r{rounds}", "probe_i8dot",
                  lambda: probes.probe_i8dot(a, b, rounds), 2 * g * m * k * n * rounds,
                  "int8_mma", rates.dot_work(g, m, k, n, rounds), nbytes(a, b) + 4 * g * m * n))
+    dot_label, dot_ops = {"P5": runs[-1][0]}, {"P5": (a, b, rounds)}
+    for probe, (lg, lm, lk, ln, lr) in rates.DOT_PROBES.items():
+        if probe == "P5":
+            continue
+        la = torch.randint(-128, 128, (lg, lm, lk), generator=gen, device=dev).to(torch.int8)
+        lb = torch.randint(-128, 128, (lg, lk, ln), generator=gen, device=dev).to(torch.int8)
+        dot_label[probe], dot_ops[probe] = f"i8dot_{lg}x{lm}x{lk}x{ln}_r{lr}", (la, lb, lr)
+        runs.append((dot_label[probe], "probe_i8dot",
+                     lambda la=la, lb=lb, lr=lr: probes.probe_i8dot(la, lb, lr),
+                     2 * lg * lm * lk * ln * lr, "int8_mma", rates.dot_work(lg, lm, lk, ln, lr),
+                     nbytes(la, lb) + 4 * lg * lm * ln))
+    # each timed dot once at its full rounds, against the wrapped sum: the
+    # plans timed here (P2's k split 4 ways, P7's rounds 11 ways with 5 left
+    # over) are not all those of PROBE_DOTS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for probe, (da, db, dr) in dot_ops.items():
+        held(f"probe_i8dot {probe} x{dr}", probes.probe_i8dot(da, db, dr),
+             rates.dot_rounds(da, db, dr))
+    say("[probes] probe_i8dot bit-equal to rounds x the float64 product, wrapped, at the "
+        "timed shapes and rounds: " + ", ".join(
+            f"{p} {tuple(rates.DOT_PROBES[p])} plan {probes.i8dot_plan(*rates.DOT_PROBES[p], sms)}"
+            for p in dot_ops))
 
     build.reset_launches()
     measured = {}
     for label, kernel, fn, counted, unit, work, n_bytes in runs:
         ms = median_ms(fn, dev)
         rate = counted / (ms * 1e-3)
-        measured[label] = {"kernel": kernel, "ms": ms, "rate": rate, "unit": unit,
+        measured[label] = {"kernel": kernel, "fn": fn, "ms": ms, "rate": rate, "unit": unit,
                            **rates.bound(work, spec_ops, n_bytes)}
         say(f"[probes] {label}: {ms:.4f} ms, {rate / 1e9:.3f} Gops/s counted beside the "
             f"{unit} spec {spec_ops[unit] / 1e9:.3f}; bound {measured[label]['bound_ms']:.4f}"
@@ -630,7 +653,7 @@ def phase_probes(gpu, results):
     say(f"[probes] library: {rounds} float32 torch.bmm into an int32 total at "
         f"{(g, m, k, n)}: {bmm_ms:.4f} ms; launches {launches}")
     int_mm_ms = {}
-    for probe, (lg, lm, lk, ln, lr) in LIBRARY_DOTS.items():
+    for probe, (lg, lm, lk, ln, lr) in rates.DOT_PROBES.items():
         la = torch.randint(-64, 64, (lg, lm, lk), generator=gen, device=dev).to(torch.int8)
         lb = torch.randint(-64, 64, (lg, lk, ln), generator=gen, device=dev).to(torch.int8)
         if lg == 1:
@@ -645,6 +668,25 @@ def phase_probes(gpu, results):
             f"{int_mm_ms[probe]['b_row_major']:.4f} ms, b column-major "
             f"{int_mm_ms[probe]['b_col_major']:.4f} ms on {gpu}")
     lib_ms = int_mm_ms["P5"]["ms"]
+    # C3 beside the library on the same footing: its calls replayed from a
+    # CUDA graph too (after the launch counts were read: the capture is no
+    # launch of the kernel)
+    c3 = {}
+    for probe, (lg, lm, lk, ln, lr) in rates.DOT_PROBES.items():
+        run, lib = measured[dot_label[probe]], int_mm_ms[probe]
+        graphed = graphed_ms(run["fn"], dev, calls=max(1, min(10, int(2 / run["ms"]))))
+        c3[probe] = {"ms": run["ms"], "graphed_ms": graphed, "bound_ms": run["bound_ms"],
+                     "bound_by": run["bound_by"], "int_mm_b_row_major_ms": lib["b_row_major"],
+                     "int_mm_b_col_major_ms": lib["b_col_major"],
+                     "plan": probes.i8dot_plan(lg, lm, lk, ln, lr, sms)}
+        col, row, bnd = lib["b_col_major"], lib["b_row_major"], run["bound_ms"]
+        say(f"[probes] C3 {probe} {(lg, lm, lk, ln)} x {lr}: {graphed:.4f} ms from a CUDA "
+            f"graph ({run['ms']:.4f} ms called one by one); torch._int_mm from a CUDA graph b "
+            f"column-major {col:.4f} ms (C3 / it {graphed / col:.4f}), b row-major "
+            f"{row:.4f} ms (C3 / it {graphed / row:.4f}); share of the bound {bnd:.4f} ms "
+            f"({run['bound_by']}): C3 {bnd / graphed:.4f} ({bnd / run['ms']:.4f} one by "
+            f"one), _int_mm column-major {bnd / col:.4f}, row-major {bnd / row:.4f}; plan "
+            f"{c3[probe]['plan']} on {gpu}")
 
     # multiplies a second: every op of the i32 mul chain is one; the mulhi
     # chain's ops are one high word and one add
@@ -678,7 +720,7 @@ def phase_probes(gpu, results):
         library_call=f"torch._int_mm, a loop of {g} x {rounds} calls (torch has no "
                      "batched int8 product) replayed from a CUDA graph, b in the faster "
                      "of row- and column-major",
-        library_bmm_ms=bmm_ms, library_int_mm_ms_by_probe=int_mm_ms)
+        library_bmm_ms=bmm_ms, library_int_mm_ms_by_probe=int_mm_ms, c3_by_probe=c3)
     return launches, rec
 
 
@@ -822,7 +864,7 @@ def main() -> int:
         f"(nvcc {build.build_seconds:.2f} s)")
     for line in build.build_log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling entry" in line
-                or "error" in line):
+                or "error" in line or "wgmma" in line):
             say(f"[build] {line.strip()}")
 
     params = OmrParameters.default()
@@ -947,7 +989,7 @@ def main() -> int:
                                  "main_path_shape", "bound_ms", "bound_by", "bound_unit",
                                  "rate_per_s", "spec_per_s", "library_ms")},
             **{k: r[k] for k in ("library_call", "library_bmm_ms",
-                                 "library_int_mm_ms_by_probe") if k in r},
+                                 "library_int_mm_ms_by_probe", "c3_by_probe") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,14 @@ It stands in for the JAX package's benches/fused_l1.py, fused_l2.py and
 fused_trace.py (``--batch``, ``--steps``; the kernels are held against
 the plain version where those held the fused kernel against the XLA path).
 
+With ``--only c3`` it times the int8 tensor-core probe C3 (``probe_i8dot``,
+csrc/probes.cu) at the TPU dot probes' shapes and rounds (P2, P5, P7, P9,
+utils/rates.py DOT_PROBES), each first held bit-equal to plain at 2
+rounds, beside its bound (int8 tensor-core operations at the spec rate or
+bytes) and where a call's time goes: the host's time a call and each
+kernel's device time (torch.profiler). ``chip_smoke.py`` phase 9 times
+``torch._int_mm`` at the same shapes.
+
 With ``--grid`` the row NTT's C entry point is also timed alone (no
 wrapper) over grids of 1, 2 and 3 blocks an SM, the grid the wrapper picks,
 and one block a row group: blocks that outlive their rows against blocks
@@ -23,7 +31,7 @@ that do not.
 
 Usage:
     python examples/bench_kernels_torch.py [--batch 1024] [--steps S] [--reps 3]
-        [--only k1,k2,k3,k4,k5] [--grid]
+        [--only k1,k2,k3,k4,k5,c3] [--grid]
 """
 
 from __future__ import annotations
@@ -70,6 +78,62 @@ def sweep_grid(ntt, x, reps: int, gpu: str) -> None:
         print(f"{ntt.name}: {rows} rows, kernel alone, {blocks} blocks of {groups} "
               f"row groups ({lay.blocks_per_sm} resident an SM): forward {ms:.4f} ms "
               f"(median of {reps}), on {gpu}", flush=True)
+
+
+def c3_split(fn, dev, calls: int = 5) -> str:
+    """Where a call's time goes: the host's microseconds a call (``calls``
+    calls queued without waiting, so the card keeps up unless the host is
+    the slower) and each kernel's device microseconds a call
+    (torch.profiler)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    parts = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+        if us and ev.device_type.name == "CUDA":
+            parts.append(f"{ev.key[:40]} {us / calls:.2f}")
+    return f"host {host_us:.2f} us a call; device us a call: " + ", ".join(parts)
+
+
+def bench_c3(gen, reps: int, gpu: str) -> None:
+    """C3 at each of ``rates.DOT_PROBES``: bit-equal to plain at 2 rounds,
+    then its median time, bound and :func:`c3_split`."""
+    from tfhe_omr_tpu_torch.ops import probes
+    from tfhe_omr_tpu_torch.utils import rates
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
+
+    dev = gen.device
+    spec = rates.spec_rates(dev)["ops_per_s"]
+    for probe, (g, m, k, n, rounds) in rates.DOT_PROBES.items():
+        a = torch.randint(-128, 128, (g, m, k), generator=gen, device=dev).to(torch.int8)
+        b = torch.randint(-128, 128, (g, k, n), generator=gen, device=dev).to(torch.int8)
+        if g == 1:
+            a, b = a[0], b[0]
+        held(f"probe_i8dot {probe}", f"{(g, m, k, n)} x 2",
+             probes.probe_i8dot(a, b, 2), probes.probe_i8dot_plain(a, b, 2))
+        ms = median_ms(lambda: probes.probe_i8dot(a, b, rounds), dev, 5 * reps)
+        bnd = rates.bound(rates.dot_work(g, m, k, n, rounds), spec,
+                          a.numel() + b.numel() + 4 * g * m * n)
+        print(f"probe_i8dot {probe} {(g, m, k, n)} x {rounds}: {ms:.4f} ms (median of "
+              f"{5 * reps}), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"{bnd['bound_ms'] / ms:.4f} of it reached; "
+              f"{c3_split(lambda: probes.probe_i8dot(a, b, rounds), dev)}, on {gpu}",
+              flush=True)
+        del a, b
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -184,6 +248,9 @@ def main():
             if args.grid:
                 sweep_grid(ntt, x, reps, gpu)
             del x
+
+    if "c3" in only:
+        bench_c3(gen, args.reps, gpu)
 
 
 if __name__ == "__main__":

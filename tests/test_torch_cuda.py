@@ -382,9 +382,14 @@ def test_probe_chain_and_mac_kernels_match_plain(cuda, streams):
     ((1, 2048, 2048, 256), 1), ((1, 128, 12, 256), 3), ((2048, 48, 12, 128), 2),
     ((256, 384, 96, 128), 2), ((128, 768, 192, 128), 1), ((1, 20, 200, 72), 2),
     ((1, 384, 768, 128), 8192),  # positive operands: every int32 sum wraps
+    ((2, 256, 1024, 192), 5),  # 8 tiles: k split 8 ways and rounds 2, n ragged
+    ((1, 100, 300, 42), 5),  # split, TMA adds into C's rows padded to 44 words
+    ((200, 20, 40, 70), 1),  # 200 whole tiles, TMA stores into rows padded to 72
+    ((1, 768, 192, 128), 16384),  # P7: rounds split 11 ways, 5 left over
 ])
 def test_probe_i8dot_kernel_matches_plain(cuda, shape, rounds):
-    """C3 on the tensor cores at the probes' shapes, int32 sums that wrap."""
+    """C3 on the tensor cores at the probes' shapes, int32 sums that wrap,
+    and a product whose tiles share out their k atoms and rounds."""
     from tfhe_omr_tpu_torch.ops import probes
 
     g, m, k, n = shape
@@ -396,6 +401,25 @@ def test_probe_i8dot_kernel_matches_plain(cuda, shape, rounds):
     got = probes.probe_i8dot(a, b, rounds)
     assert build.LAUNCHES["probe_i8dot"] == 1
     assert torch.equal(got, probes.probe_i8dot_plain(a, b, rounds))
+
+
+def test_bench_kernels_times_c3_at_the_dot_probes(cuda, capsys):
+    """``examples/bench_kernels_torch.py --only c3``: C3 held against plain,
+    timed and its time split at each TPU dot probe."""
+    import os
+    import sys
+
+    from tfhe_omr_tpu_torch.utils import rates
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "examples"))
+    import bench_kernels_torch
+
+    bench_kernels_torch.bench_c3(torch.Generator(device=cuda).manual_seed(5), 1, "gpu")
+    out = capsys.readouterr().out.splitlines()
+    assert sum("bit-equal to plain" in ln for ln in out) == len(rates.DOT_PROBES)
+    timed = [ln for ln in out if "reached" in ln]
+    assert [ln.split()[1] for ln in timed] == list(rates.DOT_PROBES)
+    assert all("host" in ln and "device us a call" in ln for ln in timed)
 
 
 _RANK_ON_ITS_CARD = """

@@ -20,9 +20,11 @@ that and raises otherwise).
 
 The kernels run here through the host build of csrc/ (build.host_library,
 g++ against the stand-in cuda_runtime.h): probe_chain and probe_mac as they
-are; probe_i8dot with its mma.sync fragment step replaced by a scalar
-definition that reads the warp's fragments by the PTX ISA's layout, so the
-staging, the zero padding, the fragment loads and the stores are exercised.
+are; probe_i8dot with csrc/hopper.cuh's stand-ins (a TMA box copied into
+the same swizzled offsets, each thread's wgmma fragment by the PTX ISA's
+layout, TMA stores and reduce-adds as copies and sums), so the pre-pass,
+the tiling, the splits of k and of the rounds, the ring, the masks and the
+fragment-to-C map are exercised; the descriptors only on a card.
 The four bench twins run at ``--tiny --device cpu``.
 """
 
@@ -32,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +54,7 @@ sys.path.insert(0, os.path.join(ROOT, "benches"))
 SHAPE = (8, 128)
 ITERS = 3
 F32_RTOL = 2.0 ** -17
+SMS = 8  # the stand-in card's SMs: a product of fewer tiles splits them
 
 
 @pytest.fixture
@@ -73,6 +77,8 @@ def host(monkeypatch):
     monkeypatch.setattr(build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(build, "stream_of", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=SMS))
     before = dict(build.LAUNCHES)
     yield lib
     build.LAUNCHES.clear()
@@ -252,9 +258,13 @@ def test_mac_kernel_on_host_matches_plain(host, streams):
 
 
 @pytest.mark.parametrize("shape,rounds", [
-    ((2, 48, 12, 16), 2),   # k = 12 padded to 32, m beyond the tile's rows
-    ((1, 20, 200, 72), 1),  # two k chunks (4 + 3 steps), two n tiles, ragged
+    ((2, 48, 12, 16), 2),   # k = 12 padded to 16, m beyond the tile's rows
+    ((1, 20, 200, 72), 1),  # two k atoms (4 + 3 steps), n ragged in one tile
     ((None, 70, 96, 8), 2),  # 2-D, two m tiles
+    ((1, 100, 300, 42), 5),  # 2 tiles on 8 SMs: k split over 3 blocks, TMA adds; C padded
+    ((1, 64, 64, 64), 43),  # one tile: its 43 rounds split over 8 blocks (TMA adds)
+    ((3, 48, 12, 128), 1),  # the P9 form: A packed, rows beyond m, TMA stores
+    ((8, 20, 600, 70), 2),  # 5 atoms through a ring of 4: it wraps; C's rows padded to 72
 ])
 def test_i8dot_kernel_on_host_matches_plain(host, shape, rounds):
     g, m, k, n = shape
@@ -264,6 +274,33 @@ def test_i8dot_kernel_on_host_matches_plain(host, shape, rounds):
     assert build.LAUNCHES["probe_i8dot"] >= 1
     assert got.shape == lead + (m, n) and got.dtype == torch.int32
     assert torch.equal(got, probes.probe_i8dot_plain(a, b, rounds))
+
+
+def test_i8dot_kernel_on_host_takes_a_misaligned_a(host):
+    """A view of a whose rows do not start on 16 bytes (TMA reads aligned
+    rows): the wrapper copies it first, and the sums are the plain ones."""
+    a, b = _t(*_i8(13, (1 + 2 * 40 * 32,), (2, 32, 24), lo=-128, hi=127))
+    a = a[1:].view(2, 40, 32)
+    assert a.data_ptr() % 16
+    assert torch.equal(probes.probe_i8dot(a, b, 3), probes.probe_i8dot_plain(a, b, 3))
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (g, m, k, n, rounds) on an H100's 132 SMs: P2, P5, P7, P9
+    ((1, 2048, 2048, 256, 8), dict(n_tile=256, split_k=4, split_r=1, stages=4, blocks=128)),
+    ((256, 384, 96, 128, 512), dict(n_tile=128, split_k=1, split_r=1, stages=1, blocks=1536)),
+    ((1, 768, 192, 128, 16384), dict(n_tile=128, split_k=1, split_r=11, stages=2, blocks=132)),
+    ((2048, 48, 12, 128, 1), dict(n_tile=128, split_k=1, split_r=1, stages=1, blocks=2048)),
+    ((1, 384, 768, 128, 8192), dict(n_tile=128, split_k=1, split_r=22, stages=4, blocks=132)),
+])
+def test_i8dot_plan_fills_the_card(host, shape, want):
+    """The cut of the probes' products: tiles a block, k or the rounds split
+    where the tiles are fewer than the SMs, and k padded to 16 bytes."""
+    g, m, k, n, rounds = shape
+    plan = probes.i8dot_plan(g, m, k, n, rounds, 132)
+    assert {key: plan[key] for key in want} == want
+    assert plan["kp"] == -(-k // 16) * 16 and plan["smem"] <= 232448
+    assert plan["blocks"] <= 132 or plan["split_k"] * plan["split_r"] == 1
 
 
 def test_wrappers_refuse_what_no_kernel_takes():
@@ -352,6 +389,7 @@ def test_library_int_mm_equals_plain_at_the_probes_shapes(shape):
     assert torch.equal(rates.library_int_mm(a, b, rounds), want)
     assert torch.equal(rates.library_int_mm(a, b, rounds, b_col_major=True), want)
     assert torch.equal(rates.library_int_mm_graphed(a, b, rounds, True)(), want)
+    assert torch.equal(rates.dot_rounds(a, b, rounds), want)
     assert rates.int_mm_k(k) % 16 == 0 and rates.int_mm_k(k) > 16
     with pytest.raises(ValueError, match="_int_mm"):
         rates.library_int_mm(a, b[..., :8], 1)

@@ -20,6 +20,7 @@
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct uint3_ { unsigned x, y, z; };
 inline thread_local uint3_ threadIdx, blockIdx;
@@ -27,6 +28,7 @@ inline uint3_ blockDim, gridDim;
 struct uint2 { unsigned x, y; };
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
 struct alignas(16) longlong2 { long long x, y; };
+struct alignas(8) int2 { int x, y; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -35,6 +37,10 @@ enum { cudaMemcpyHostToDevice = 1 };
 template <class K> inline int cudaFuncSetAttribute(K, int, int) { return 0; }
 template <class K> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return 0; }
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 inline const char* cudaGetErrorString(int) { return "host shim error"; }
 
 inline int __mulhi(int a, int b) { return (int)(((long long)a * b) >> 32); }

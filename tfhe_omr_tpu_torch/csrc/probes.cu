@@ -25,15 +25,22 @@
 // compiler cannot turn (v + i) * k into an induction variable of adds.
 //
 // probe_i8dot: C[g] = rounds x (A[g] @ B[g]) mod 2^32, int8 (g, m, k) x
-// (g, k, n) -> int32, on the tensor cores: mma.sync m16n8k32 s8 x s8 + s32
-// without .satfinite, so the sum wraps as the TPU's int32 sum does. A block
-// of 4 warps owns a 64 x 64 tile of C; k is staged through shared memory in
-// chunks of 128 bytes, zero-padded to a multiple of 32 and beyond m and n.
-// The fragments of a chunk are loaded once and the rounds loop runs over
-// them (sum_r sum_k = sum_k sum_r: the same wrapped sum), so the loop is
-// nothing but mma.sync. What bounds each probe is its unit's issue rate:
-// the data are read once.
+// (g, k, n) -> int32, on the tensor cores: wgmma m64nNk32 .s32.s8.s8 without
+// .satfinite, so the sum wraps as the TPU's int32 sum does, both operands
+// read from shared memory that TMA fills (hopper.cuh). wgmma takes 8-bit
+// operands K-major only, so a pre-pass packs B into Bt (g, n, kp) (and A
+// where its rows are not 16-byte strides), k zero-padded to 16 bytes; TMA
+// reads zeros beyond k, m and n. A staged k atom is multiplied `rounds`
+// times before the next one replaces it (sum_r sum_k = sum_k sum_r: the
+// same wrapped sum), every round on the tensor cores. What bounds it: the
+// int8 tensor-core rate where the rounds are many (P5, P7), the bytes of C
+// where they are few (P9). Its design against each: tiles of 64 x N chosen
+// by n, k or the rounds split across blocks where the tiles are fewer than
+// the SMs, the next atoms' loads in flight under this atom's products, and
+// C written through shared memory by TMA stores (reduce-adds where blocks
+// share a tile).
 #include "field.cuh"
+#include "hopper.cuh"
 
 #ifndef __CUDACC__
 #include <cmath>
@@ -137,136 +144,212 @@ probe_mac_kernel(const int* __restrict__ x, const int* __restrict__ y, int* __re
   out[e] = r;
 }
 
-// ------------------------------------------------------------ int8 mma
-constexpr int DOT_BM = 64, DOT_BN = 64, DOT_KC = 128, DOT_KSTEPS = DOT_KC / 32;
-constexpr int DOT_LDS = DOT_KC + 16;  // row pitch in bytes: fragment loads hit 32 banks
-constexpr int DOT_SMEM = (DOT_BM + DOT_BN) * DOT_LDS;
+// ------------------------------------------------------------ int8 wgmma
+// A block is one warpgroup and owns a tile of C of 64 rows (wgmma's m64)
+// x N columns (64, 128 or 256: the product's n rounded up, at most 256).
+// k arrives in atoms of 128 bytes (four wgmma k steps), A's and B's atoms
+// side by side in one stage of a ring of DOT_RING stages; thread 0 keeps
+// the TMA loads of the next atoms in flight while the warpgroup multiplies
+// the atom at hand `rounds` times. Where the tiles are fewer than the SMs,
+// a tile's blocks share out its k atoms or its rounds and add their sums
+// into a zeroed C (addition mod 2^32 is associative, so C stays bit-equal).
+// C's tile leaves through shared memory as TMA stores or, for shared
+// tiles, TMA reduce-adds (whole lines, clipped at m and at C's rows by the
+// unit); C's rows are n rounded up to 4 words, so they are 16-byte strides.
+constexpr int DOT_BM = 64, DOT_ATOM = 128, DOT_RING = 4, DOT_THREADS = 128;
+constexpr int DOT_C_BOX = DOT_BM * 128;  // bytes of a box of C: 64 rows x 32 words
+constexpr int DOT_SMEM_MAX = 232448;      // the dynamic shared memory a block may have
+constexpr int PACK_THREADS = 256;
 
-#ifdef __CUDACC__
-static __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                              const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+static __host__ __device__ constexpr int dot_stage_bytes(int n_tile) {
+  return (DOT_BM + n_tile) * DOT_ATOM;
 }
-#else
-// The host build: the lanes' fragments meet in a table and each lane sums
-// its four elements of C from it, by the fragment layout of the PTX ISA
-// (m16n8k32, .s8): lane = 4 * groupID + threadID_in_group; A register
-// (row >= 8) + 2 (k >= 16), byte k % 4, held by groupID = row % 8,
-// threadID_in_group = (k % 16) / 4; B register k >= 16, byte k % 4, held by
-// groupID = col, threadID_in_group = (k % 16) / 4; C element i at row
-// groupID + 8 (i >= 2), col 2 threadID_in_group + i % 2. Every thread of a
-// block calls it equally often.
-inline unsigned host_frag_a[1024][4], host_frag_b[1024][2];
-static void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  const unsigned t = threadIdx.x, w0 = t & ~31u, lane = t & 31u;
-  memcpy(host_frag_a[t], a, sizeof(a));
-  memcpy(host_frag_b[t], b, sizeof(b));
-  __syncthreads();
-  const int g = lane >> 2, tq = lane & 3;
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + (i >= 2 ? 8 : 0), col = 2 * tq + (i & 1);
-    unsigned sum = (unsigned)c[i];
-    for (int kk = 0; kk < 32; ++kk) {
-      const unsigned wa = host_frag_a[w0 + (row & 7) * 4 + ((kk & 15) >> 2)][(row >> 3) + 2 * (kk >> 4)];
-      const unsigned wb = host_frag_b[w0 + col * 4 + ((kk & 15) >> 2)][kk >> 4];
-      const int av = (signed char)(wa >> (8 * (kk & 3)));
-      const int bv = (signed char)(wb >> (8 * (kk & 3)));
-      sum += (unsigned)(av * bv);
-    }
-    c[i] = (int)sum;
-  }
-  __syncthreads();
-}
-#endif
+static __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// The rounds over one staged chunk of NKS k-steps: fragments loaded once.
-template <int NKS>
-static __device__ __forceinline__ void dot_chunk(const signed char* as, const signed char* bs,
-                                                 int rounds, int (&acc)[2][4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  unsigned af[NKS][2][4], bf[NKS][4][2];
-#pragma unroll
-  for (int ks = 0; ks < NKS; ++ks) {
-    const int kb = ks * 32 + tq * 4;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const signed char* r0 = as + (wm + mt * 16 + g) * DOT_LDS + kb;
-      af[ks][mt][0] = *reinterpret_cast<const unsigned*>(r0);
-      af[ks][mt][1] = *reinterpret_cast<const unsigned*>(r0 + 8 * DOT_LDS);
-      af[ks][mt][2] = *reinterpret_cast<const unsigned*>(r0 + 16);
-      af[ks][mt][3] = *reinterpret_cast<const unsigned*>(r0 + 8 * DOT_LDS + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const signed char* c0 = bs + (wn + nt * 8 + g) * DOT_LDS + kb;
-      bf[ks][nt][0] = *reinterpret_cast<const unsigned*>(c0);
-      bf[ks][nt][1] = *reinterpret_cast<const unsigned*>(c0 + 16);
-    }
+// How a product is cut into blocks; omr_probe_i8dot_plan tells the wrapper.
+struct DotPlan {
+  int n_tile, tiles_m, tiles_n;
+  long long tiles;           // g x tiles_m x tiles_n
+  int split_k, split_r;      // blocks a tile: its k atoms or its rounds shared out
+  int atoms, atoms_per;      // k in 128-byte atoms; atoms a block at most
+  int ksteps, kp;            // k in 32-byte wgmma steps; k padded to 16 bytes (TMA strides)
+  int stages, smem;          // ring depth; dynamic shared memory bytes
+  long long blocks;
+  long long bt_bytes, scratch;  // Bt's bytes (rounded up to 256); Bt's and Ap's
+};
+
+static DotPlan dot_plan(long long g, int m, int k, int n, int rounds, int sms) {
+  DotPlan p{};
+  p.n_tile = n <= 64 ? 64 : n <= 128 ? 128 : 256;
+  p.tiles_m = (m + DOT_BM - 1) / DOT_BM;
+  p.tiles_n = (n + p.n_tile - 1) / p.n_tile;
+  p.tiles = g * p.tiles_m * p.tiles_n;
+  p.ksteps = (k + 31) / 32;
+  p.atoms = (k + DOT_ATOM - 1) / DOT_ATOM;
+  p.kp = (k + 15) / 16 * 16;
+  const long long split = p.tiles < sms ? sms / p.tiles : 1;
+  if (rounds >= 4 * split) {
+    // every share keeps many rounds on atoms that stay resident
+    p.split_k = 1;
+    p.split_r = (int)split;
+  } else {
+    // few rounds: blocks that split them would each stream all of k
+    p.split_k = (int)(split < p.atoms ? split : p.atoms);
+    const long long r = split / p.split_k;
+    p.split_r = (int)(r < rounds ? r : (rounds > 1 ? rounds : 1));
   }
+  p.atoms_per = (p.atoms + p.split_k - 1) / p.split_k;
+  p.split_k = (p.atoms + p.atoms_per - 1) / p.atoms_per;
+  p.stages = imin(p.atoms_per, DOT_RING);
+  const int ring = p.stages * dot_stage_bytes(p.n_tile);
+  const int epilogue = p.n_tile / 32 * DOT_C_BOX;
+  p.smem = 1024 + (ring > epilogue ? ring : epilogue) + 8 * DOT_RING;
+  p.blocks = p.tiles * p.split_k * p.split_r;
+  p.bt_bytes = (g * n * p.kp + 255) / 256 * 256;
+  p.scratch = p.bt_bytes + (k % 16 ? g * m * p.kp : 0);
+  return p;
+}
+
+// The pre-pass, a 16-byte piece of k a thread. Blocks below bt_blocks
+// turn B (g, k, n) into Bt (g, n, kp), K-major: Bt[gi][j][16c + i] =
+// B[gi][16c + i][j] (neighbouring threads take neighbouring j, so each of
+// the 16 loads is coalesced). The blocks above them widen A (g, m, k) to
+// Ap (g, m, kp). Both zero beyond k.
+struct alignas(16) Bytes16 {
+  unsigned w[4];
+};
+static __device__ __forceinline__ Bytes16 gather16(const signed char* src, long long stride,
+                                                   int valid) {
+  Bytes16 v = {{0, 0, 0, 0}};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i < valid) v.w[i / 4] |= (unsigned)(unsigned char)src[i * stride] << (8 * (i % 4));
+  return v;
+}
+
+__global__ void __launch_bounds__(PACK_THREADS)
+probe_i8dot_pack_kernel(const signed char* __restrict__ A, const signed char* __restrict__ B,
+                        signed char* __restrict__ Ap, signed char* __restrict__ Bt, long long g,
+                        int m, int k, int n, int kp, long long bt_blocks) {
+  const int chunks = kp / 16;
+  if ((long long)blockIdx.x < bt_blocks) {
+    const long long e = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
+    if (e >= g * chunks * n) return;
+    const int j = (int)(e % n), c = (int)(e / n % chunks);
+    const long long gi = e / n / chunks;
+    *reinterpret_cast<Bytes16*>(Bt + (gi * n + j) * kp + 16 * c) =
+        gather16(B + (gi * k + 16 * c) * n + j, n, k - 16 * c);
+  } else {
+    const long long e = ((long long)blockIdx.x - bt_blocks) * PACK_THREADS + threadIdx.x;
+    if (e >= g * m * chunks) return;
+    const long long row = e / chunks;
+    const int c = (int)(e % chunks);
+    *reinterpret_cast<Bytes16*>(Ap + row * kp + 16 * c) =
+        gather16(A + row * k + 16 * c, 1, k - 16 * c);
+  }
+}
+
+// `rounds` passes over one resident atom of KS k steps.
+template <int N, int KS>
+static __device__ __forceinline__ void dot_atom(int (&acc)[N / 2], const unsigned char* sa,
+                                                const unsigned char* sb, int rounds) {
+  const KOperand a = k_operand(sa), b = k_operand(sb);
   for (int r = 0; r < rounds; ++r) {
 #pragma unroll
-    for (int ks = 0; ks < NKS; ++ks)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[ks][mt], bf[ks][nt]);
+    for (int s = 0; s < KS; ++s) wgmma_s8<N>(acc, k_advance(a, 32 * s), k_advance(b, 32 * s));
   }
 }
 
-// Grid: one block per (n tile, m tile, batch), flattened.
-__global__ void __launch_bounds__(128)
-probe_i8dot_kernel(const signed char* __restrict__ A, const signed char* __restrict__ B,
-                   int* __restrict__ C, int m, int k, int n, int rounds) {
+// One stage: A's atom (64 rows) and then B's (N rows) at k byte k0.
+static __device__ __forceinline__ void dot_issue(unsigned char* stage, int bytes, uint64_t* bar,
+                                                 const TmaMap* ta, const TmaMap* tb, int k0,
+                                                 int m0, int n0, int gi) {
+  mbar_expect_tx(bar, bytes);
+  tma_load_3d(stage, ta, bar, k0, m0, gi);
+  tma_load_3d(stage + DOT_BM * DOT_ATOM, tb, bar, k0, n0, gi);
+}
+
+// Grid: p.blocks, a tile's split_k x split_r blocks side by side; A's map
+// (g, m, k or kp) in boxes 128 x 64, Bt's (g, n, kp) in boxes 128 x N.
+template <int N>
+__global__ void __launch_bounds__(DOT_THREADS)
+probe_i8dot_kernel(const __grid_constant__ TmaMap ta, const __grid_constant__ TmaMap tb,
+                   const __grid_constant__ TmaMap tc, int n, int rounds, const DotPlan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  signed char* as = reinterpret_cast<signed char*>(smem_raw);
-  signed char* bs = as + DOT_BM * DOT_LDS;
-  const int tiles_n = (n + DOT_BN - 1) / DOT_BN, tiles_m = (m + DOT_BM - 1) / DOT_BM;
-  const int bx = blockIdx.x % tiles_n, by = (blockIdx.x / tiles_n) % tiles_m;
-  const long long bz = blockIdx.x / (tiles_n * tiles_m);
-  const int m0 = by * DOT_BM, n0 = bx * DOT_BN;
-  const signed char* a = A + bz * m * k;
-  const signed char* b = B + bz * k * n;
-  const int kpad = (k + 31) / 32 * 32;
-  int acc[2][4][4] = {};
-  for (int k0 = 0; k0 < kpad; k0 += DOT_KC) {
-    const int kc = kpad - k0 < DOT_KC ? kpad - k0 : DOT_KC;
-    for (int i = threadIdx.x; i < DOT_BM * kc; i += blockDim.x) {
-      const int r = i / kc, kk = i % kc;
-      const int gr = m0 + r, gk = k0 + kk;
-      as[r * DOT_LDS + kk] = gr < m && gk < k ? a[(long long)gr * k + gk] : 0;
-    }
-    for (int i = threadIdx.x; i < DOT_BN * kc; i += blockDim.x) {
-      const int kk = i / DOT_BN, c = i % DOT_BN;
-      const int gc = n0 + c, gk = k0 + kk;
-      bs[c * DOT_LDS + kk] = gc < n && gk < k ? b[(long long)gk * n + gc] : 0;
-    }
-    __syncthreads();
-    switch (kc / 32) {
-      case 1: dot_chunk<1>(as, bs, rounds, acc); break;
-      case 2: dot_chunk<2>(as, bs, rounds, acc); break;
-      case 3: dot_chunk<3>(as, bs, rounds, acc); break;
-      default: dot_chunk<DOT_KSTEPS>(as, bs, rounds, acc); break;
-    }
-    __syncthreads();
+  unsigned char* smem = smem_align1024(smem_raw);
+  constexpr int STAGE = dot_stage_bytes(N);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.smem - 1024 - 8 * DOT_RING);
+  const int split = p.split_k * p.split_r;
+  long long bi = blockIdx.x;
+  const int s = (int)(bi % split);
+  bi /= split;
+  const int m0 = (int)(bi / p.tiles_n % p.tiles_m) * DOT_BM, n0 = (int)(bi % p.tiles_n) * N;
+  const int gi = (int)(bi / p.tiles_n / p.tiles_m);
+  const int a0 = (s % p.split_k) * p.atoms_per, sr = s / p.split_k;
+  const int na = imin(p.atoms_per, p.atoms - a0);
+  const int my_rounds = rounds / p.split_r + (sr < rounds % p.split_r ? 1 : 0);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  int* c = C + bz * m * n;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < p.stages && i < na; ++i)
+      dot_issue(smem + i * STAGE, STAGE, &full[i], &ta, &tb, (a0 + i) * DOT_ATOM, m0, n0, gi);
+
+  int acc[N / 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+  for (int i = 0; i < na; ++i) {
+    const int slot = i % p.stages;
+    mbar_wait(&full[slot], (unsigned)(i / p.stages) & 1);
+    const unsigned char* sa = smem + slot * STAGE;
+    const unsigned char* sb = sa + DOT_BM * DOT_ATOM;
+    wgmma_fence_acc(acc);
+    wgmma_fence();
+    switch (imin(4, p.ksteps - 4 * (a0 + i))) {
+      case 1: dot_atom<N, 1>(acc, sa, sb, my_rounds); break;
+      case 2: dot_atom<N, 2>(acc, sa, sb, my_rounds); break;
+      case 3: dot_atom<N, 3>(acc, sa, sb, my_rounds); break;
+      default: dot_atom<N, 4>(acc, sa, sb, my_rounds); break;
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    __syncthreads();  // atom i - 1's products are done in every warp: its slot is free
+    if (threadIdx.x == 0 && i >= 1 && i - 1 + p.stages < na) {
+      const int prev = (i - 1) % p.stages;
+      dot_issue(smem + prev * STAGE, STAGE, &full[prev], &ta, &tb,
+                (a0 + i - 1 + p.stages) * DOT_ATOM, m0, n0, gi);
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_fence_acc(acc);
+
+  // C's tile through shared memory, in boxes of 32 words x 64 rows in the
+  // 128-byte swizzle (conflict-free 8-byte writes of the fragments)
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  __syncthreads();  // every warp's products are done: the ring becomes C's tile
+  unsigned char* st = smem;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = m0 + (warp >> 1) * 32 + mt * 16 + g + (i >= 2 ? 8 : 0);
-        const int col = n0 + (warp & 1) * 32 + nt * 8 + 2 * tq + (i & 1);
-        if (row < m && col < n) c[(long long)row * n + col] = acc[mt][nt][i];
-      }
+    for (int h = 0; h < 2; ++h) {
+      int2 v;
+      v.x = acc[4 * j + 2 * h];
+      v.y = acc[4 * j + 2 * h + 1];
+      *reinterpret_cast<int2*>(st + (j / 4) * DOT_C_BOX +
+                               swz128(16 * w + l / 4 + 8 * h, 4 * (8 * (j % 4) + 2 * (l % 4)))) = v;
+    }
+  // the TMA unit writes the boxes, clipped at m and at C's rows (n rounded
+  // up to 4 words: a multiple of 16 bytes)
+  tma_store_fence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < N / 32 && n0 + 32 * b < n; ++b)
+      tma_store_3d(&tc, st + b * DOT_C_BOX, split > 1, n0 + 32 * b, m0, gi);
+    tma_store_wait();
+  }
 }
 
 // ------------------------------------------------------------ entry points
@@ -335,13 +418,66 @@ extern "C" int omr_probe_mac(int streams, const int* x, const int* y, int* out, 
   return (int)cudaErrorInvalidValue;
 }
 
-// a (g, m, k), b (g, k, n) int8 and c (g, m, n) int32, contiguous.
-extern "C" int omr_probe_i8dot(const void* a, const void* b, void* c, int64_t g, int m, int k,
-                               int n, int rounds, void* stream) {
-  const int64_t blocks = g * ((m + DOT_BM - 1) / DOT_BM) * ((n + DOT_BN - 1) / DOT_BN);
-  if (g <= 0 || m <= 0 || k <= 0 || n <= 0 || rounds < 0 || blocks > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  OMR_LAUNCH(probe_i8dot_kernel, (unsigned)blocks, 128, DOT_SMEM, stream,
-             (const signed char*)a, (const signed char*)b, (int*)c, m, k, n, rounds);
+template <int N>
+static int dot_launch(const TmaMap& ta, const TmaMap& tb, const TmaMap& tc, int n, int rounds,
+                      const DotPlan& p, void* stream) {
+  const cudaError_t rc = allow_smem(probe_i8dot_kernel<N>, p.smem);
+  if (rc != cudaSuccess) return (int)rc;
+  OMR_LAUNCH(probe_i8dot_kernel<N>, (unsigned)p.blocks, DOT_THREADS, p.smem, stream, ta, tb, tc,
+             n, rounds, p);
   return (int)cudaGetLastError();
+}
+
+// The cut of a product (dot_plan) for `sms` SMs: out = {n_tile, split_k,
+// split_r, stages, blocks, smem, kp, scratch}; the wrapper gives
+// omr_probe_i8dot `scratch` bytes for Bt (g, n, kp) and, where k is not a
+// multiple of 16, Ap (g, m, kp).
+extern "C" int omr_probe_i8dot_plan(int64_t g, int m, int k, int n, int rounds, int sms,
+                                    int64_t* out) {
+  if (g <= 0 || m <= 0 || k <= 0 || n <= 0 || rounds < 0 || sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const DotPlan p = dot_plan(g, m, k, n, rounds, sms);
+  const int64_t v[8] = {p.n_tile, p.split_k, p.split_r, p.stages, p.blocks, p.smem, p.kp,
+                        p.scratch};
+  memcpy(out, v, sizeof(v));
+  return 0;
+}
+
+// a (g, m, k) (16-byte aligned), b (g, k, n) int8 and c (g, m, nc) int32,
+// contiguous, nc = n rounded up to 4 (TMA's 16-byte rows; columns n .. nc - 1
+// come out zero); scratch as omr_probe_i8dot_plan says. Zeroes C where
+// blocks share a tile, then two launches: the pre-pass, then the product.
+extern "C" int omr_probe_i8dot(const void* a, const void* b, void* c, void* scratch, int64_t g,
+                               int m, int k, int n, int rounds, int sms, void* stream) {
+  if (g <= 0 || m <= 0 || k <= 0 || n <= 0 || rounds < 0 || sms <= 0 || !scratch ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(scratch) % 16)
+    return (int)cudaErrorInvalidValue;
+  const DotPlan p = dot_plan(g, m, k, n, rounds, sms);
+  if (p.blocks > INT32_MAX || g > INT32_MAX || p.smem > DOT_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  signed char* bt = static_cast<signed char*>(scratch);
+  signed char* ap = k % 16 ? bt + p.bt_bytes : nullptr;
+  const long long bt_blocks = (g * n * (p.kp / 16) + PACK_THREADS - 1) / PACK_THREADS;
+  const long long ap_blocks = ap ? (g * m * (p.kp / 16) + PACK_THREADS - 1) / PACK_THREADS : 0;
+  if (bt_blocks + ap_blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int nc = (n + 3) / 4 * 4;
+  int rc = 0;
+  if (p.split_k * p.split_r > 1)
+    rc = (int)cudaMemsetAsync(c, 0, (size_t)g * m * nc * sizeof(int), (cudaStream_t)stream);
+  if (rc) return rc;
+  OMR_LAUNCH(probe_i8dot_pack_kernel, (unsigned)(bt_blocks + ap_blocks), PACK_THREADS, 0, stream,
+             (const signed char*)a, (const signed char*)b, ap, bt, (long long)g, m, k, n, p.kp,
+             bt_blocks);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  TmaMap ta, tb, tc;
+  rc = tma_map_3d(&ta, ap ? ap : a, 1, ap ? p.kp : k, m, g, DOT_ATOM, DOT_BM);
+  if (!rc) rc = tma_map_3d(&tb, bt, 1, p.kp, n, g, DOT_ATOM, p.n_tile);
+  if (!rc) rc = tma_map_3d(&tc, c, 4, nc, m, g, 32, DOT_BM);
+  if (rc) return rc;
+  switch (p.n_tile) {
+    case 64: return dot_launch<64>(ta, tb, tc, nc, rounds, p, stream);
+    case 128: return dot_launch<128>(ta, tb, tc, nc, rounds, p, stream);
+    default: return dot_launch<256>(ta, tb, tc, nc, rounds, p, stream);
+  }
 }

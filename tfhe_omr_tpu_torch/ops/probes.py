@@ -12,7 +12,7 @@ the card gives that unit's rate.
   multiply, float32 FMA);
 * :func:`probe_mac` - ``acc_s += (v_s + i) * k_s`` with loop-invariant v, k;
 * :func:`probe_i8dot` - int8 (g, m, k) @ (g, k, n) -> int32 summed over
-  ``rounds``, on the tensor cores (``mma.sync`` s8).
+  ``rounds``, on the tensor cores (``wgmma`` s8 from TMA-fed shared memory).
 
 Integer sums wrap mod 2^32 (2^64 for int64) as the TPU's do. A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches its
@@ -20,6 +20,9 @@ kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -188,9 +191,35 @@ def probe_i8dot_plain(a: torch.Tensor, b: torch.Tensor, rounds: int) -> torch.Te
     return _wrap_int32(acc)
 
 
+#: the fields of ``omr_probe_i8dot_plan`` (csrc/probes.cu ``dot_plan``), in order
+DOT_PLAN_FIELDS = ("n_tile", "split_k", "split_r", "stages", "blocks", "smem", "kp", "scratch")
+
+
+def i8dot_plan(g: int, m: int, k: int, n: int, rounds: int, sms: int) -> dict:
+    """How the kernel cuts a product for a card of ``sms`` SMs: the tile's
+    columns, the blocks a tile shares its k atoms and its rounds between, the
+    ring's stages, the blocks, the shared memory, k padded to 16 bytes and
+    the bytes of the packed operands."""
+    lib = build.library()
+    out = (ctypes.c_int64 * len(DOT_PLAN_FIELDS))()
+    build.check(lib, lib.omr_probe_i8dot_plan(g, m, k, n, rounds, sms, out),
+                "probe_i8dot_plan")
+    return dict(zip(DOT_PLAN_FIELDS, out))
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(g: int, m: int, k: int, n: int, rounds: int, sms: int) -> int:
+    """The plan's scratch bytes, asked once a shape: the plan's ctypes round
+    trip took as much host time as the rest of the wrapper, and a small
+    product's call is bound by the host (PERF.md section 6)."""
+    return i8dot_plan(g, m, k, n, rounds, sms)["scratch"]
+
+
 def probe_i8dot(a: torch.Tensor, b: torch.Tensor, rounds: int) -> torch.Tensor:
     """:func:`probe_i8dot_plain` through ``csrc/probes.cu`` on a card:
-    ``mma.sync`` m16n8k32 s8 tiles, k zero-padded to a multiple of 32."""
+    ``wgmma`` m64nNk32 s8 over TMA-fed shared memory, after a pre-pass that
+    packs b K-major (and a where k is not a multiple of 16) into one scratch
+    buffer, k zero-padded to 16 bytes."""
     _check_dot(a, b)
     if build.device_kind(a) == "cpu":
         return probe_i8dot_plain(a, b, rounds)
@@ -198,15 +227,24 @@ def probe_i8dot(a: torch.Tensor, b: torch.Tensor, rounds: int) -> torch.Tensor:
     b3 = b if b.dim() == 3 else b.unsqueeze(0)
     g, m, k = a3.shape
     n = b3.shape[2]
-    out = torch.empty((g, m, n), dtype=torch.int32, device=a.device)
     build.require_cuda("probe_i8dot", a3, b3, dtypes=(torch.int8,))
-    if out.numel() == 0 or k == 0:
-        return out.zero_().reshape(a.shape[:-1] + b.shape[-1:])
+    if g * m * n == 0 or k == 0:
+        return torch.zeros((g, m, n), dtype=torch.int32,
+                           device=a.device).reshape(a.shape[:-1] + b.shape[-1:])
+    if a3.data_ptr() % 16:  # TMA reads from 16-byte aligned rows
+        a3 = a3.clone()
     lib = build.library()
     with torch.cuda.device(a.device):
-        rc = lib.omr_probe_i8dot(build.ptr(a3), build.ptr(b3), build.ptr(out), g, m, k, n,
-                                 rounds, build.stream_of(a))
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        scratch = torch.empty(_scratch_bytes(g, m, k, n, rounds, sms), dtype=torch.int8,
+                              device=a.device)
+        # C's rows rounded up to 4 words, so that TMA can write every tile
+        out = torch.empty((g, m, -(-n // 4) * 4), dtype=torch.int32, device=a.device)
+        rc = lib.omr_probe_i8dot(build.ptr(a3), build.ptr(b3), build.ptr(out),
+                                 build.ptr(scratch), g, m, k, n, rounds, sms,
+                                 build.stream_of(a))
     build.check(lib, rc, "probe_i8dot")
     build.LAUNCHES["probe_i8dot"] += 1
+    if out.shape[2] != n:
+        out = out[..., :n].contiguous()
     return out.reshape(a.shape[:-1] + b.shape[-1:])
-

@@ -53,7 +53,8 @@ _TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P, _U64, _U64,
                _I32, _I64, _I32, _I32, _P]
 _PROBE_CHAIN_ARGS = [_I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P]
 _PROBE_MAC_ARGS = [_I32, _P, _P, _P, _I64, _I32, _P]
-_PROBE_I8DOT_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P]
+_PROBE_I8DOT_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P]
+_PROBE_I8DOT_PLAN_ARGS = [_I64, _I32, _I32, _I32, _I32, _I32, _P]
 
 _library = None
 _host_library = None
@@ -159,6 +160,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("omr_probe_chain", _PROBE_CHAIN_ARGS),
         ("omr_probe_mac", _PROBE_MAC_ARGS),
         ("omr_probe_i8dot", _PROBE_I8DOT_ARGS),
+        ("omr_probe_i8dot_plan", _PROBE_I8DOT_PLAN_ARGS),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -24,10 +24,14 @@ import subprocess
 
 import torch
 
-from tfhe_omr_tpu_torch.utils.timing import median_ms
+from tfhe_omr_tpu_torch.utils.timing import cuda_graph, median_ms
 
 SPEC_PER_CLK_SM = {"int32": 128, "int32_mul": 64, "f32_fma": 128, "int8_mma": 8192}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+#: the TPU dot probes' (g, m, k, n, rounds): benches/vpu_probe.py (P2),
+#: mac_probe.py (P5, P7), mosaic_unsupported_probe.py (P9)
+DOT_PROBES = {"P2": (1, 2048, 2048, 256, 8), "P5": (256, 384, 96, 128, 512),
+              "P7": (1, 768, 192, 128, 16384), "P9": (2048, 48, 12, 128, 1)}
 
 #: the least work of one step of a probe chain, an element and a stream, by
 #: unit: int32 instructions (of them multiplies; a multiply-add is one) or
@@ -175,15 +179,24 @@ def library_int_mm(a: torch.Tensor, b: torch.Tensor, rounds: int,
 GRAPH_CALLS = 1024
 
 
+def dot_rounds(a: torch.Tensor, b: torch.Tensor, rounds: int) -> torch.Tensor:
+    """``rounds`` x (a @ b), int32 wrapping: one product in float64 (exact),
+    times ``rounds`` in int64 (exact below 2^63). The sums of every int8
+    dot probe, computed apart from both the kernel and its plain version."""
+    one = torch.matmul(a.double(), b.double()).long()
+    return ((one * rounds + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
 def library_int_mm_graphed(a: torch.Tensor, b: torch.Tensor, rounds: int,
                            b_col_major: bool = False):
     """A callable that returns :func:`library_int_mm` ``(a, b, rounds,
     b_col_major)``. On a card the calls of ``per`` rounds (the largest
     divisor of ``rounds`` with ``per * g <= GRAPH_CALLS``, at least 1) are
-    captured once in a CUDA graph, and the callable zeroes the total and
-    replays the graph ``rounds / per`` times: its time is the card's, not
-    that of the host's launches (some 20-30 us a call on an H100 machine,
-    more than a small product takes). On the CPU it runs the loop."""
+    captured in CUDA graphs (:func:`~tfhe_omr_tpu_torch.utils.timing.cuda_graph`),
+    the first of which also zeroes the total, and the callable replays them
+    ``rounds / per`` times: its time is the card's, not that of the host's
+    launches (some 20-30 us a call on an H100 machine, more than a small
+    product takes). On the CPU it runs the loop."""
     if a.device.type != "cuda":
         return lambda: library_int_mm(a, b, rounds, b_col_major)
     a3, b3, m = _int_mm_operands(a, b, b_col_major)
@@ -191,19 +204,19 @@ def library_int_mm_graphed(a: torch.Tensor, b: torch.Tensor, rounds: int,
     per = max([d for d in range(1, rounds + 1) if rounds % d == 0 and d * g <= GRAPH_CALLS],
               default=1)
     acc = torch.zeros((g, a3.shape[1], b3.shape[2]), dtype=torch.int32, device=a.device)
-    side = torch.cuda.Stream(a.device)
-    side.wait_stream(torch.cuda.current_stream(a.device))
-    with torch.cuda.stream(side):  # the library's first calls, outside the capture
-        _int_mm_rounds(a3, b3, torch.zeros_like(acc), 1)
-    torch.cuda.current_stream(a.device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _int_mm_rounds(a3, b3, acc, per)
+
+    def first() -> None:
+        acc.zero_()
+        _int_mm_rounds(a3, b3, acc, min(per, rounds))
+
+    graphs = [cuda_graph(first, a.device)]
+    if rounds > per:
+        graphs.append(cuda_graph(lambda: _int_mm_rounds(a3, b3, acc, per), a.device))
 
     def run() -> torch.Tensor:
-        acc.zero_()
-        for _ in range(rounds // per):
-            graph.replay()
+        graphs[0].replay()
+        for _ in range(rounds // per - 1):
+            graphs[-1].replay()
         return acc[:, :m].reshape(a.shape[:-1] + b.shape[-1:])
 
     return run
@@ -213,9 +226,8 @@ def library_int_mm_ms(a: torch.Tensor, b: torch.Tensor, rounds: int,
                       reps: int = 3) -> dict:
     """``{"b_row_major": ms, "b_col_major": ms}``: the median time of
     :func:`library_int_mm_graphed` with b in each layout, each first held
-    equal to ``rounds`` times the product (int32 wrapping); raises if not."""
-    one = torch.matmul(a.double(), b.double()).long()
-    want = ((one * rounds + 2**31) % 2**32 - 2**31).to(torch.int32)
+    equal to :func:`dot_rounds`; raises if not."""
+    want = dot_rounds(a, b, rounds)
     out = {}
     for layout, col in (("b_row_major", False), ("b_col_major", True)):
         fn = library_int_mm_graphed(a, b, rounds, col)

@@ -81,6 +81,31 @@ def median_ms(fn, device, reps: int = 5, warm: bool = True) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
 
 
+def cuda_graph(fn, device, calls: int = 1) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of ``calls`` calls of ``fn`` on a card, captured after
+    one call on a side stream (where a library sets itself up, outside the
+    capture)."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    return graph
+
+
+def graphed_ms(fn, device, reps: int = 5, calls: int = 10) -> float:
+    """Median milliseconds a call of ``fn`` on a card, from ``reps`` replays
+    of a :func:`cuda_graph` of ``calls`` calls: the card's time, without the
+    host's work between launches."""
+    return median_ms(cuda_graph(fn, device, calls).replay, device, reps) / calls
+
+
 class StageTimer:
     """Accumulating wall-clock stage timer that synchronises ``device``."""
 

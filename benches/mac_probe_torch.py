@@ -13,8 +13,11 @@ The counterpart of benches/mac_probe.py, through ``csrc/probes.cu``:
   3. 2-D int8 dots at the block-diagonal sizes (probe_i8dot, g = 1), beside
      ``torch._int_mm`` a round.
 
-Rates count MACs (FMAs), as the original does. Each time is the median of
-5 calls after a warm one, with CUDA events.
+Rates count MACs (FMAs), as the original does. On a card the FMA chains'
+times are the card's, from CUDA graphs of 10 calls (utils/timing.py
+card_ms: a short kernel called one at a time is timed by the host's work
+between launches); every other time is the median of 5 calls after a warm
+one, with CUDA events.
 
 Usage: python benches/mac_probe_torch.py
        python benches/mac_probe_torch.py --tiny --device cpu   # plain torch
@@ -57,7 +60,7 @@ def main():
     from tfhe_omr_tpu_torch.utils.build import resolve_device
     from tfhe_omr_tpu_torch.utils.rates import (
         dot_work, library_i8dot, library_int_mm_ms, rate_record, spec_rates, step_work)
-    from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from tfhe_omr_tpu_torch.utils.timing import card_ms, median_ms
 
     try:
         device = resolve_device(args.device)
@@ -73,7 +76,7 @@ def main():
     xf = torch.as_tensor(rng.uniform(0.5, 1.0, size=shape).astype(np.float32), device=device)
     yf = torch.as_tensor(rng.uniform(0.9, 1.1, size=shape).astype(np.float32), device=device)
     for streams in (1, 4):
-        ms = median_ms(lambda: probe_chain(xf, yf, "fma", iters, streams), device)
+        ms = card_ms(lambda: probe_chain(xf, yf, "fma", iters, streams), device)
         steps = xf.numel() * iters * streams
         print(json.dumps(rate_record(f"f32_fma_s{streams}", 2 * steps, ms, "gfma/s", device,
                                      rates, step_work(torch.float32, "fma", steps),

@@ -14,7 +14,10 @@ streams, ``a2 = a * b; b2 = b + a2`` (2 ops an element an iteration) in
      (``torch._int_mm``, a loop over the 2048 groups: torch has no batched
      int8 product).
 
-Each time is the median of 5 calls after a warm one, with CUDA events.
+On a card the three probe_chain times are the card's, from CUDA graphs of
+10 calls (utils/timing.py card_ms: the chains take 0.03-0.2 ms, where the
+host's work between single calls could set the time); every other time is
+the median of 5 calls after a warm one, with CUDA events.
 
 Usage: python benches/mosaic_unsupported_probe_torch.py
        python benches/mosaic_unsupported_probe_torch.py --tiny --device cpu
@@ -57,7 +60,7 @@ def main():
     from tfhe_omr_tpu_torch.utils.build import resolve_device
     from tfhe_omr_tpu_torch.utils.rates import (
         dot_work, library_int_mm_ms, rate_record, spec_rates, step_work)
-    from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from tfhe_omr_tpu_torch.utils.timing import card_ms, median_ms
 
     try:
         device = resolve_device(args.device)
@@ -74,8 +77,8 @@ def main():
     x64, y64 = x32.long(), y32.long()
     steps = iters * STREAMS * x32.numel()
 
-    def attempt(label, fn, counted, work, n_bytes):
-        ms = median_ms(fn, device)
+    def attempt(label, fn, counted, work, n_bytes, timer=median_ms):
+        ms = timer(fn, device)
         print(json.dumps({"supported": True,
                           **rate_record(label, counted, ms, "gops", device,
                                         spec.get("ops_per_s"), work, n_bytes)}),
@@ -83,11 +86,11 @@ def main():
 
     b32, b64 = 12 * x32.numel(), 24 * x32.numel()
     attempt("i32_mul_chain", lambda: probe_chain(x32, y32, "mul_add", iters, STREAMS),
-            2 * steps, step_work(torch.int32, "mul_add", steps), b32)
+            2 * steps, step_work(torch.int32, "mul_add", steps), b32, card_ms)
     attempt("i64_mul_chain", lambda: probe_chain(x64, y64, "mul_add", iters, STREAMS),
-            2 * steps, step_work(torch.int64, "mul_add", steps), b64)
+            2 * steps, step_work(torch.int64, "mul_add", steps), b64, card_ms)
     attempt("mulhi_chain", lambda: probe_chain(x32, y32, "mulhi_add", iters, STREAMS),
-            2 * steps, step_work(torch.int32, "mulhi_add", steps), b32)
+            2 * steps, step_work(torch.int32, "mulhi_add", steps), b32, card_ms)
     attempt("torch_i64_mul_chain",
             lambda: probe_chain_plain(x64, y64, "mul_add", iters, STREAMS),
             2 * steps, step_work(torch.int64, "mul_add", steps), b64)

@@ -9,6 +9,14 @@ and the unroll factor this reads as instructions an iteration, so a rate
 per operation (as the JAX probes count) can be turned into a rate per
 instruction.
 
+With ``--products`` it compiles one modular product of each kind alone
+(``csrc/field.cuh``'s Shoup product and lazily summed product, in the
+27-bit field's 32-bit words and the 50-bit field's 64-bit ones, as K1-K5
+use them) and prints each kernel's multiply instructions: one JSON line per
+product, ``{"product", "opcodes"}``, the loads, stores and address
+arithmetic of its one-thread frame left out. ``chip_smoke.py bound`` counts
+K1-K5's multiply slots from these.
+
 With ``--hash`` it prints instead, for every function whose name holds the
 filter, the SHA-256 of its machine code (the instruction words as
 cuobjdump prints them, which hold branch offsets relative to the function)
@@ -18,6 +26,7 @@ agree compiled that function to the same code.
 
 Usage: python benches/probe_sass_torch.py [--filter probe_chain]
        python benches/probe_sass_torch.py --hash --filter blind_rotate_kernel
+       python benches/probe_sass_torch.py --products
 
 Needs the CUDA toolkit (nvcc, cuobjdump).
 """
@@ -94,12 +103,74 @@ def code_hashes(sass: str):
     return out
 
 
+# one product a kernel, each thread's operands loaded and its result stored
+PRODUCTS_CU = r"""
+#include "field.cuh"
+typedef WordField<u32, 134215681ull> F27;
+typedef WordField<u64, 1125899906826241ull> F50;
+extern "C" __global__ void shoup_27(const u32* x, const u32* w, const u32* s, u32* o) {
+  const int t = threadIdx.x;
+  o[t] = F27::mul_shoup_lazy(x[t], w[t], s[t]);
+}
+extern "C" __global__ void shoup_50(const u64* x, const u64* w, const u64* s, u64* o) {
+  const int t = threadIdx.x;
+  o[t] = F50::mul_shoup_lazy(x[t], w[t], s[t]);
+}
+extern "C" __global__ void summed_27(const u32* x, const u32* y, u64* o) {
+  const int t = threadIdx.x;
+  u64 a = o[t];
+  WideAcc<F27>::mac(a, x[t], y[t]);
+  o[t] = a;
+}
+extern "C" __global__ void summed_50(const u64* x, const u64* y, U128* o) {
+  const int t = threadIdx.x;
+  U128 a = o[t];
+  WideAcc<F50>::mac(a, x[t], y[t]);
+  o[t] = a;
+}
+"""
+
+
+def product_opcodes() -> dict:
+    """{product: Counter of its IMAD forms}: PRODUCTS_CU built with the
+    library's nvcc flags. The frame's address arithmetic (an IMAD.WIDE a
+    pointer, thread index x element size) is taken off."""
+    import tempfile
+
+    from tfhe_omr_tpu_torch.utils import build
+
+    pointers = {"shoup": 4, "summed": 3}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = os.path.join(tmp, "products.cu"), os.path.join(tmp, "products.cubin")
+        with open(src, "w") as fh:
+            fh.write(PRODUCTS_CU)
+        flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+        subprocess.run([_tool("nvcc"), *flags, "-cubin", "-I", str(build.CSRC_DIR), "-o", cubin,
+                        src], check=True, capture_output=True, text=True)
+        sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin], capture_output=True,
+                              text=True, check=True).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.splitlines()[0].strip()
+        ops = Counter(m.group(2) for m in _INSN.finditer(chunk) if m.group(2).startswith("IMAD"))
+        ops["IMAD.WIDE"] -= pointers[name.split("_")[0]]
+        out[name] = +ops
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--filter", default="probe_", help="functions whose name holds this")
     ap.add_argument("--hash", action="store_true",
                     help="one hash of each function's machine code, not its loops")
+    ap.add_argument("--products", action="store_true",
+                    help="the multiply instructions of one modular product of each kind")
     args = ap.parse_args()
+
+    if args.products:
+        for name, ops in product_opcodes().items():
+            print(json.dumps({"product": name, "opcodes": dict(ops.most_common())}), flush=True)
+        return
 
     from tfhe_omr_tpu_torch.utils import build
 

@@ -6,10 +6,11 @@ iteration) and the MAC shape ``acc_s += (v_s + i) * k_s`` (counted as 3
 ops: the add, the multiply and the +i), each over a shape sweep (8, 512),
 (64, 512), (256, 1024) and 1, 4, 16 independent streams, with loop counts
 that keep about ``--target-ops`` operations in one call. The state lives in
-registers: one element a thread (``csrc/probes.cu`` probe_chain,
-probe_mac). Each time is the median of 5 calls after a warm one, with CUDA
-events; (8, 512) is 4096 threads on the card's SMs, so its low rate is the
-finding.
+registers (``csrc/probes.cu`` probe_chain, probe_mac; probe_chain splits an
+element's streams over adjacent threads where the elements alone do not
+fill the card). On a card each time is the card's, from CUDA graphs of 10
+calls (utils/timing.py card_ms); (8, 512) is 4096 elements on the card's
+SMs, so its low rate is the finding.
 
 Usage: python benches/vpu_peak_probe_torch.py [--quick] [--target-ops 4e10]
        python benches/vpu_peak_probe_torch.py --tiny --device cpu   # plain torch
@@ -48,7 +49,7 @@ def main():
     from tfhe_omr_tpu_torch.ops.probes import probe_chain, probe_mac
     from tfhe_omr_tpu_torch.utils.build import resolve_device
     from tfhe_omr_tpu_torch.utils.rates import rate_record, spec_rates, step_work
-    from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from tfhe_omr_tpu_torch.utils.timing import card_ms
 
     try:
         device = resolve_device(args.device)
@@ -77,7 +78,7 @@ def main():
             points.append((f"mac_{shape[0]}x{shape[1]}_s{streams}", 3, "mac",
                            lambda: probe_mac(x, y, iters, streams)))
             for label, per_iter, op, fn in points:
-                ms = median_ms(fn, device)
+                ms = card_ms(fn, device)
                 steps = elems * iters * streams
                 rec = rate_record(label, steps * per_iter, ms, "gops", device,
                                   spec.get("ops_per_s"), step_work(torch.int32, op, steps),

@@ -4,8 +4,11 @@ The counterpart of benches/vpu_probe.py: the same seven int32 mutual
 recurrences (a = fa(a, b); b = fb(b, a), 2 ops an element an iteration) at
 (size, 1024) with 1 and 4 independent streams, and int8 dots summed over
 rounds at the same shapes, through ``csrc/probes.cu`` (probe_chain,
-probe_i8dot on the tensor cores). Each time is the median of 5 calls after
-a warm one, with CUDA events.
+probe_i8dot on the tensor cores). On a card the chains' times are the
+card's, from CUDA graphs of 10 calls (utils/timing.py card_ms: a chain of
+0.01-0.1 ms called one at a time is timed by the host's work between
+launches); the dots' times are the median of 5 calls after a warm one, with
+CUDA events.
 
 Usage: python benches/vpu_probe_torch.py [--size 256] [--iters 512]
        python benches/vpu_probe_torch.py --tiny --device cpu   # plain torch
@@ -49,7 +52,7 @@ def main():
     from tfhe_omr_tpu_torch.utils.build import resolve_device
     from tfhe_omr_tpu_torch.utils.rates import (
         dot_work, library_int_mm_ms, rate_record, spec_rates, step_work)
-    from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from tfhe_omr_tpu_torch.utils.timing import card_ms, median_ms
 
     try:
         device = resolve_device(args.device)
@@ -64,7 +67,7 @@ def main():
     elems = x.numel()
     for op in VARIANTS:
         for streams in (1, 4):
-            ms = median_ms(lambda: probe_chain(x, y, op, iters, streams), device)
+            ms = card_ms(lambda: probe_chain(x, y, op, iters, streams), device)
             steps = elems * iters * streams
             print(json.dumps(rate_record(f"i32_{op}_s{streams}", 2 * steps, ms, "gops",
                                          device, spec.get("ops_per_s"),

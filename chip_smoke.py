@@ -15,12 +15,13 @@ Phases (each prints its result; any failure exits non-zero):
      rotations and the trace alone at the main path's batch (7*1024, 1024
      and 1024 samples) and compute each kernel's bound there: the larger
      of its bytes (every input read once, every output written once) over
-     3.35 TB/s and the int32 multiplies of its modular products over
-     1.675e13 multiplies a second (half the card's 67 TFLOP/s float32
-     lanes). A product with a twiddle or the 1/N scale (Shoup) is 3
-     multiplies in a 27-bit field and 10 in a 50-bit one; a product that is
-     summed with others before one reduction (against a key, against the
-     monomial table) is 1 and 4;
+     3.35 TB/s and the multiply slots of its modular products over
+     1.675e13 slots a second (half the card's 67 TFLOP/s float32 lanes;
+     an IMAD takes one, an IMAD.HI or IMAD.WIDE two). A product with a
+     twiddle or the 1/N scale (Shoup) is 4 slots in a 27-bit field and 15
+     in a 50-bit one; a product that is summed with others before one
+     reduction (against a key, against the monomial table) is 2 and 12
+     (PRODUCT_SLOTS, from the products' SASS);
   4+5. the omd oracle at the reference parameters, B = 1024 (8 pertinent
      messages, 1016 from a second key pack): key generation on the card,
      clues, Detector.warm(1024), detect through the kernels, decrypt,
@@ -57,23 +58,33 @@ Phases (each prints its result; any failure exits non-zero):
      (tfhe_omr_tpu_torch/entry.py dryrun_multichip) over every visible card
      at the small preset: sharded detect and both encoders equal to one card.
   9. the unit-rate probes (csrc/probes.cu, the twins of the TPU probes of
-     benches/): probe_chain for every op, type and stream count, probe_mac
+     benches/): probe_chain for every op, type and stream count, at P8's
+     (64, 512) with S = 4 (int32 and int64 mul_add, mulhi_add; the int64
+     chain's streams split over 2 threads) and at P3's (8, 512) with S = 16
+     (mul_add, sel_add, fma; split over 8 threads), probe_mac
      and probe_i8dot (wgmma s8 from TMA-fed shared memory) at the probes'
      shapes, one of them with int32 sums that wrap, each bit-equal to its
-     plain version at small loop counts, and the int8 dot also at each of
+     plain version at small loop counts (C1 at 70, past one turn of its
+     unrolled loop, fma also at 5), and the int8 dot also at each of
      P2, P5, P7 and P9's shapes and full rounds against rounds x its float64
      product, wrapped (utils/rates.py DOT_PROBES, dot_rounds); then, with
-     the launch counts set to 0, one short timed run of each (the int32 multiply chains and the
-     MAC at (256, 1024) with 4 and 16 streams, mulhi, int64 multiply,
-     float32 FMA, the int8 dot at P5's (256, 384, 96, 128) x 512 and at P2,
+     the launch counts set to 0, one short timed run of each (the int32
+     multiply chains and the MAC at (256, 1024) with 4 and 16 streams,
+     mulhi, mulwide (one IMAD.WIDE a step), int64 multiply,
+     sel_add at P1's 512 iterations, float32 FMA, the three chains of P8 at
+     its shape and 4096 iterations and mul_add at (8, 512) (these short
+     runs also from a CUDA graph), the int8 dot
+     at P5's (256, 384, 96, 128) x 512 and at P2,
      P7 and P9's shapes and rounds), every rate beside its unit's spec rate at the
      card's top SM clock and each run's bound, the least time at the spec
      rates of its least instruction mix (tfhe_omr_tpu_torch/utils/rates.py:
-     int32 multiplies 64 and int32 instructions 128 a clock an SM); the
+     64 multiply slots, two for a high word or a wide product, and 128
+     int32 instructions a clock an SM); the
      measured int32 multiply peak against the
-     1.675e13 that ``bound`` assumes, and K1-K5's bound at the measured
-     int32 multiply rate and, if every multiply took as long as a high
-     word (__mulhi), at that rate; the library's int8 product
+     1.675e13 that ``bound`` assumes, the high word's and the wide
+     product's rates beside it, and K1-K5's bound at the measured int32
+     multiply rate and, if every multiply took as long as a high word
+     (__mulhi), at that rate; the library's int8 product
      (torch._int_mm, k zero-padded, a loop over the groups of a batched dot)
      at the TPU dot probes' shapes and rounds (P2, P5, P7, P9), its calls
      replayed from a CUDA graph so that the time is the card's, with b
@@ -97,7 +108,10 @@ phases 4+5, 7 and 8 together for K1-K5, phase 9's timed runs for the probes,
 of phase 10, K1 and K2 ``profiled`` with the profiled instantiation's
 launches, times and stage split, with stamps at every key plane, and
 ``per_pass`` the same with one stamp a digit pass around the MAC and the
-key staging); the last line is
+key staging; probe_chain ``runs`` with each C1 run's time, from a CUDA
+graph too where it is short, bound and share, the plans at P8 and
+(8, 512) and the measured IMAD, IMAD.HI and IMAD.WIDE rates); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -107,6 +121,7 @@ import json
 import os
 import socket
 import statistics
+import itertools
 import subprocess
 import sys
 import tempfile
@@ -124,6 +139,20 @@ RAGGED = (1, 5)  # batches that fill no whole block, on RAGGED_STEPS steps
 RAGGED_STEPS = 4
 NTT_RAGGED_ROWS = (1, 37)  # row counts that fill no whole group of a block
 INT32_MULS_PER_S = 67e12 / 4  # int32 multiply-adds: half the float32 lanes
+# multiply slots of one modular product (Shoup, summed) in 32- and 64-bit
+# words at utils/rates.py's costs (IMAD 1, IMAD.HI and IMAD.WIDE 2), read
+# from each product compiled alone (benches/probe_sass_torch.py --products)
+# and from K1-K5's NTT pass loops (--filter ntt_kernel: a 27-bit pass of 80
+# butterflies issues 80 IMAD.HI.U32, a 50-bit one of 32 issues 160
+# IMAD.WIDE.U32 and 32 IMAD.WIDE.U32.X). A Shoup product (a twiddle, the 1/N
+# scale) is 2 IMAD + 1 IMAD.HI in 32-bit words and 6 IMAD.WIDE + 3 IMAD in
+# 64-bit ones; a product summed in double width with others before one
+# reduction (against a key, against the monomial table) is 1 IMAD.WIDE, and
+# 5 IMAD.WIDE + 2 IMAD.
+PRODUCT_SLOTS = {32: (4, 2), 64: (15, 12)}
+# the same products as 32-bit multiplies, each one whatever its form (the
+# count before multiply slots, kept in the kernels line as bound_multiplies)
+PRODUCT_MULTIPLIES = {32: (3, 1), 64: (10, 4)}
 # phase 7: D = 8192 has the digest layout of D = 65536 at these parameters
 # (2 index digits per bucket, 5 segments and 5 index cts, 55 combinations
 # in 28 payload cts); only the board is shorter
@@ -139,10 +168,22 @@ WARM_FIRST_MAX = 1.25  # the first detect after Detector.warm, over the warm med
 
 # phase 9: the probes' compared loop counts, the timed runs' shape and work
 PROBE_SHAPE = (256, 1024)
-PROBE_CMP_ITERS = 9
-PROBE_FMA_CMP_ITERS = 3  # every float64 sum exact: the plain fmaf emulation holds
+PROBE_CMP_ITERS = 70  # past one 64-step turn of probe_chain's unrolled loop, into its rest
+# the fma chain has overflowed to +inf within 6 steps at these inputs: it
+# also runs 5 steps, where at S = 16 a 4-step turn of the loop runs finite
+PROBE_FMA_TURN_ITERS = 5
 PROBE_TARGET_OPS = 4e10  # operations of one timed chain or MAC call
 PROBE_FMA_ITERS = 8192
+PROBE_SEL_ITERS = 512  # benches/vpu_probe.py's loop count (P1)
+# P8 (benches/mosaic_unsupported_probe.py): too few elements to fill the
+# card one a thread, so probe_chain splits each element's streams
+PROBE_P8_SHAPE = (64, 512)
+PROBE_P8_ITERS = 4096
+PROBE_P8_STREAMS = 4
+# P3's smallest shape (benches/vpu_peak_probe.py): 4096 elements, so each
+# element's 16 streams are split over 8 threads
+PROBE_SMALL_SHAPE = (8, 512)
+PROBE_SMALL_ITERS = 4768
 # (g, m, k, n, rounds): P2, P5, P7 and P9's shapes with few rounds, and
 # the 2-D dot of P7 whose int32 sums wrap at its own rounds
 PROBE_DOTS = [
@@ -215,18 +256,21 @@ def nbytes(*tensors) -> int:
 
 def bound(n_bytes: int, shoup_products: int, summed_products: int, field) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    the modular products' int32 multiplies over the integer rate. A Shoup
-    product (a twiddle, the 1/N scale) is 3 multiplies in 32-bit words and
-    10 in 64-bit ones; a product summed in double width with others before
-    one reduction is 1 and 4."""
+    the modular products' multiply slots over the FMA pipe's integer rate
+    (PRODUCT_SLOTS)."""
     from tfhe_omr_tpu_torch.utils import rates
 
-    per_shoup, per_summed = (3, 1) if field.bits <= 31 else (10, 4)
-    muls = shoup_products * per_shoup + summed_products * per_summed
-    return {**rates.bound({"int32_mul": muls}, {"int32_mul": INT32_MULS_PER_S}, n_bytes),
-            "bound_unit": "int32 multiplies", "bound_bytes": n_bytes,
+    word = 32 if field.bits <= 31 else 64
+
+    def count(per):
+        return shoup_products * per[word][0] + summed_products * per[word][1]
+
+    slots = count(PRODUCT_SLOTS)
+    return {**rates.bound({"int32_mul": slots}, {"int32_mul": INT32_MULS_PER_S}, n_bytes),
+            "bound_unit": "int32 multiply slots", "bound_bytes": n_bytes,
             "bound_products": shoup_products + summed_products,
-            "bound_multiplies": muls, "library_ms": None}
+            "bound_multiplies": count(PRODUCT_MULTIPLIES), "bound_multiply_slots": slots,
+            "library_ms": None}
 
 
 def ntt_products(n: int) -> int:
@@ -522,14 +566,47 @@ def phase_probes(gpu, results):
     errs = []
     for dtype, ops in probes.CHAIN_DTYPES.items():
         a, b = operands[dtype]
-        iters = PROBE_FMA_CMP_ITERS if dtype == torch.float32 else PROBE_CMP_ITERS
-        for op in ops:
-            for streams in probes.STREAMS:
-                errs.append(held(f"probe_chain {op} {dtype} s{streams}",
-                                 probes.probe_chain(a, b, op, iters, streams),
-                                 probes.probe_chain_plain(a, b, op, iters, streams)))
+        iters = (PROBE_CMP_ITERS, PROBE_FMA_TURN_ITERS) if dtype == torch.float32 else (
+            PROBE_CMP_ITERS,)
+        for op, streams, it in itertools.product(ops, probes.STREAMS, iters):
+            errs.append(held(f"probe_chain {op} {dtype} s{streams} x{it}",
+                             probes.probe_chain(a, b, op, it, streams),
+                             probes.probe_chain_plain(a, b, op, it, streams)))
     say(f"[probes] probe_chain bit-equal to plain: every op and type at {PROBE_SHAPE}, "
-        f"streams {probes.STREAMS}, {PROBE_CMP_ITERS} iterations (fma {PROBE_FMA_CMP_ITERS})")
+        f"streams {probes.STREAMS}, {PROBE_CMP_ITERS} iterations (fma also "
+        f"{PROBE_FMA_TURN_ITERS})")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x8 = torch.randint(1, 1 << 20, PROBE_P8_SHAPE, generator=gen, device=dev, dtype=torch.int32)
+    y8 = torch.randint(1, 1 << 10, PROBE_P8_SHAPE, generator=gen, device=dev, dtype=torch.int32)
+    p8_runs = [(torch.int32, "mul_add", x8, y8), (torch.int64, "mul_add", x8.long(), y8.long()),
+               (torch.int32, "mulhi_add", x8, y8)]
+    for dtype, op, pa, pb in p8_runs:
+        errs.append(held(f"probe_chain {op} {dtype} P8", probes.probe_chain(
+            pa, pb, op, PROBE_CMP_ITERS, PROBE_P8_STREAMS), probes.probe_chain_plain(
+            pa, pb, op, PROBE_CMP_ITERS, PROBE_P8_STREAMS)))
+    p8_plan = {str(dtype)[6:]: probes.chain_plan(x8.numel(), PROBE_P8_STREAMS, sms, dtype)
+               for dtype in (torch.int32, torch.int64)}
+    xs = torch.randint(1, 1 << 20, PROBE_SMALL_SHAPE, generator=gen, device=dev,
+                       dtype=torch.int32)
+    ys = torch.randint(1, 1 << 10, PROBE_SMALL_SHAPE, generator=gen, device=dev,
+                       dtype=torch.int32)
+    xsf = torch.rand(PROBE_SMALL_SHAPE, generator=gen, device=dev) * 0.5 + 0.5
+    ysf = torch.rand(PROBE_SMALL_SHAPE, generator=gen, device=dev) * 0.2 + 0.9
+    for pa, pb, op, iters in ((xs, ys, "mul_add", PROBE_CMP_ITERS),
+                              (xs, ys, "sel_add", PROBE_CMP_ITERS),
+                              (xsf, ysf, "fma", PROBE_CMP_ITERS)):
+        errs.append(held(f"probe_chain {op} {PROBE_SMALL_SHAPE} s16", probes.probe_chain(
+            pa, pb, op, iters, 16), probes.probe_chain_plain(pa, pb, op, iters, 16)))
+    small_plan = probes.chain_plan(xs.numel(), 16, sms)
+    if small_plan["split"] == 1:
+        raise AssertionError(f"{PROBE_SMALL_SHAPE} S = 16 is not split: {small_plan}")
+    say(f"[probes] probe_chain bit-equal to plain at {PROBE_SMALL_SHAPE}, S = 16 (mul_add, "
+        f"sel_add, fma: the sum a_0 + b_0 + ... + b_15 put together across threads), plan "
+        f"{small_plan}")
+    say(f"[probes] probe_chain bit-equal to plain at P8's {PROBE_P8_SHAPE}, S = "
+        f"{PROBE_P8_STREAMS} (int32 mul_add, int64 mul_add, mulhi_add), {PROBE_CMP_ITERS} "
+        f"iterations, plan {p8_plan}; at {PROBE_SHAPE} S = 4 plan "
+        f"{probes.chain_plan(x.numel(), 4, sms)}")
     rec["probe_chain"] = {"max_abs_err": max(errs), **kernel_and_plain(
         lambda: probes.probe_chain(x, y, "mul_add", PROBE_CMP_ITERS, 4),
         lambda: probes.probe_chain_plain(x, y, "mul_add", PROBE_CMP_ITERS, 4))}
@@ -590,19 +667,37 @@ def phase_probes(gpu, results):
                      lambda s=streams, it=it: probes.probe_mac(x, y, it, s),
                      3 * it * streams * elems, "int32_mul",
                      rates.step_work(torch.int32, "mac", it * streams * elems), 3 * nbytes(x)))
-    for streams in (4, 16):
-        it = chain_iters(streams)
-        runs.append((f"mulhi_s{streams}", "probe_chain",
-                     lambda s=streams, it=it: probes.probe_chain(x, y, "mulhi_add", it, s),
-                     2 * it * streams * elems, "int32_mul",
-                     rates.step_work(torch.int32, "mulhi_add", it * streams * elems),
-                     3 * nbytes(x)))
+    for op, name in (("mulhi_add", "mulhi"), ("mulwide_add", "mulwide")):
+        for streams in (4, 16):
+            it = chain_iters(streams)
+            runs.append((f"{name}_s{streams}", "probe_chain",
+                         lambda op=op, s=streams, it=it: probes.probe_chain(x, y, op, it, s),
+                         2 * it * streams * elems, "int32_mul",
+                         rates.step_work(torch.int32, op, it * streams * elems),
+                         3 * nbytes(x)))
     x64, y64 = operands[torch.int64]
     it = chain_iters(4) // 4
     runs.append(("i64_mul_s4", "probe_chain",
                  lambda: probes.probe_chain(x64, y64, "mul_add", it, 4),
                  2 * it * 4 * elems, "int32_mul",
                  rates.step_work(torch.int64, "mul_add", it * 4 * elems), 3 * nbytes(x64)))
+    runs.append(("i32_sel_add_s4", "probe_chain",
+                 lambda: probes.probe_chain(x, y, "sel_add", PROBE_SEL_ITERS, 4),
+                 2 * PROBE_SEL_ITERS * 4 * elems, "int32",
+                 rates.step_work(torch.int32, "sel_add", PROBE_SEL_ITERS * 4 * elems),
+                 3 * nbytes(x)))
+    p8_steps = PROBE_P8_ITERS * PROBE_P8_STREAMS * x8.numel()
+    for dtype, op, pa, pb in p8_runs:
+        runs.append((f"p8_{str(dtype)[6:]}_{op}_s{PROBE_P8_STREAMS}", "probe_chain",
+                     lambda op=op, pa=pa, pb=pb: probes.probe_chain(pa, pb, op, PROBE_P8_ITERS,
+                                                                    PROBE_P8_STREAMS),
+                     2 * p8_steps, "int32_mul", rates.step_work(dtype, op, p8_steps),
+                     3 * nbytes(pa)))
+    runs.append(("p3_8x512_mul_add_s16", "probe_chain",
+                 lambda: probes.probe_chain(xs, ys, "mul_add", PROBE_SMALL_ITERS, 16),
+                 2 * PROBE_SMALL_ITERS * 16 * xs.numel(), "int32",
+                 rates.step_work(torch.int32, "mul_add", PROBE_SMALL_ITERS * 16 * xs.numel()),
+                 3 * nbytes(xs)))
     runs.append(("f32_fma_s4", "probe_chain",
                  lambda: probes.probe_chain(xf, yf, "fma", PROBE_FMA_ITERS, 4),
                  2 * PROBE_FMA_ITERS * 4 * elems, "f32_fma",
@@ -625,7 +720,6 @@ def phase_probes(gpu, results):
     # each timed dot once at its full rounds, against the wrapped sum: the
     # plans timed here (P2's k split 4 ways, P7's rounds 11 ways with 5 left
     # over) are not all those of PROBE_DOTS
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for probe, (da, db, dr) in dot_ops.items():
         held(f"probe_i8dot {probe} x{dr}", probes.probe_i8dot(da, db, dr),
              rates.dot_rounds(da, db, dr))
@@ -688,24 +782,51 @@ def phase_probes(gpu, results):
             f"one), _int_mm column-major {bnd / col:.4f}, row-major {bnd / row:.4f}; plan "
             f"{c3[probe]['plan']} on {gpu}")
 
-    # multiplies a second: every op of the i32 mul chain is one; the mulhi
-    # chain's ops are one high word and one add
+    # C1's short runs (P1's sel_add, P8, (8, 512)) from a CUDA graph too
+    # (after the launch counts were read): 0.03-0.2 ms a call, where the
+    # host's work between calls could set the time
+    chain_runs = {}
+    for label, run in measured.items():
+        if run["kernel"] != "probe_chain":
+            continue
+        chain_runs[label] = {key: run[key] for key in ("ms", "bound_ms", "bound_by",
+                                                       "bound_unit")}
+        chain_runs[label]["share_of_bound"] = run["bound_ms"] / run["ms"]
+        if label.startswith(("p8_", "p3_", "i32_sel_add")):
+            graphed = graphed_ms(run["fn"], dev)
+            chain_runs[label].update(graphed_ms=graphed,
+                                     share_of_bound_graphed=run["bound_ms"] / graphed)
+            say(f"[probes] C1 {label}: {graphed:.4f} ms from a CUDA graph ({run['ms']:.4f} "
+                f"ms called one by one), bound {run['bound_ms']:.4f} ms "
+                f"({run['bound_unit']}): {run['bound_ms'] / graphed:.4f} of it from a graph "
+                f"on {gpu}")
+
+    # multiplies a second: every op of the i32 mul chain is one IMAD; the
+    # mulhi chain's ops are one high word and one add, the mulwide chain's
+    # one wide product (IMAD.WIDE.U32) and one add
     int32_mul = max(r["rate"] for lbl, r in measured.items() if lbl.startswith("i32_mul_s"))
-    mulhi = max(r["rate"] for lbl, r in measured.items() if lbl.startswith("mulhi_")) / 2
-    say(f"[probes] measured int32 multiply peak {int32_mul:.4e} /s, high-word multiplies "
-        f"(__mulhi) {mulhi:.4e} /s, against the {INT32_MULS_PER_S:.4e} that bound() assumes "
+    mulhi, mulwide = (max(r["rate"] for lbl, r in measured.items() if lbl.startswith(name)) / 2
+                      for name in ("mulhi_", "mulwide_"))
+    say(f"[probes] measured int32 multiply peak {int32_mul:.4e} /s; high words (IMAD.HI) "
+        f"{mulhi:.4e} /s, {mulhi / int32_mul:.4f} of it; wide products (IMAD.WIDE) "
+        f"{mulwide:.4e} /s, {mulwide / int32_mul:.4f} of it (0.5: two slots each); against "
+        f"the {INT32_MULS_PER_S:.4e} slots that bound() assumes "
         f"({int32_mul / INT32_MULS_PER_S:.4f} x, {mulhi / INT32_MULS_PER_S:.4f} x)")
+    rec["probe_chain"].update(imad_per_s=int32_mul, imad_hi_per_s=mulhi,
+                              imad_wide_per_s=mulwide)
     for _c, jname, *_ in KERNELS:
         r = results[jname]
-        work = {"int32_mul": r["bound_multiplies"]}
         r["bound_ms_at_measured_int32_mul"] = rates.bound(
-            work, {"int32_mul": int32_mul}, r["bound_bytes"])["bound_ms"]
+            {"int32_mul": r["bound_multiply_slots"]}, {"int32_mul": int32_mul},
+            r["bound_bytes"])["bound_ms"]
         r["bound_ms_at_measured_mulhi"] = rates.bound(
-            work, {"int32_mul": mulhi}, r["bound_bytes"])["bound_ms"]
-        say(f"[probes] {jname}: bound {r['bound_ms']:.4f} ms at 1.675e13, "
+            {"int32_mul": r["bound_multiplies"]}, {"int32_mul": mulhi},
+            r["bound_bytes"])["bound_ms"]
+        say(f"[probes] {jname}: bound {r['bound_ms']:.4f} ms at 1.675e13 slots a second, "
             f"{r['bound_ms_at_measured_int32_mul']:.4f} ms at the measured int32 multiply "
-            f"rate, {r['bound_ms_at_measured_mulhi']:.4f} ms if every multiply took the "
-            f"high word's; kernel {r['ms_main_path']:.4f} ms")
+            f"rate, {r['bound_ms_at_measured_mulhi']:.4f} ms if each of its "
+            f"{r['bound_multiplies']} multiplies took a high word's time; kernel "
+            f"{r['ms_main_path']:.4f} ms")
 
     main_label = {"probe_chain": "i32_mul_s16", "probe_mac": "mac_s16",
                   "probe_i8dot": f"i8dot_{g}x{m}x{k}x{n}_r{rounds}"}
@@ -716,6 +837,7 @@ def phase_probes(gpu, results):
                  bound_unit=run["bound_unit"], rate_per_s=run["rate"],
                  spec_per_s=spec_ops[run["unit"]],
                  library_ms=lib_ms if kernel == "probe_i8dot" else None)
+    rec["probe_chain"].update(runs=chain_runs, p8_plan=p8_plan, small_plan=small_plan)
     rec["probe_i8dot"].update(
         library_call=f"torch._int_mm, a loop of {g} x {rounds} calls (torch has no "
                      "batched int8 product) replayed from a CUDA graph, b in the faster "
@@ -961,7 +1083,7 @@ def main() -> int:
             **{k: r[k] for k in ("ms_main_path", "main_path_shape", "bound_ms",
                                  "bound_by", "bound_unit", "bound_bytes",
                                  "bound_products", "bound_multiplies",
-                                 "library_ms")},
+                                 "bound_multiply_slots", "library_ms")},
             **({"inv_ms": r["inv_ms"], "plain_inv_ms": r["plain_inv_ms"]}
                if "inv_ms" in r else {}),
             "bound_ms_at_measured_int32_mul": r["bound_ms_at_measured_int32_mul"],
@@ -989,7 +1111,9 @@ def main() -> int:
                                  "main_path_shape", "bound_ms", "bound_by", "bound_unit",
                                  "rate_per_s", "spec_per_s", "library_ms")},
             **{k: r[k] for k in ("library_call", "library_bmm_ms",
-                                 "library_int_mm_ms_by_probe", "c3_by_probe") if k in r},
+                                 "library_int_mm_ms_by_probe", "c3_by_probe", "runs",
+                                 "p8_plan", "small_plan", "imad_per_s", "imad_hi_per_s",
+                                 "imad_wide_per_s") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -360,8 +360,10 @@ def test_sharded_detector_on_the_cards_matches_single(cuda):
 
 @pytest.mark.parametrize("streams", [1, 4, 16])
 def test_probe_chain_and_mac_kernels_match_plain(cuda, streams):
-    """C1 for every op and type, C2; the float32 FMA chain at 3 iterations,
-    where the plain version's float64 emulation of fmaf is exact."""
+    """C1 for every op and type, C2; the chains at 70 iterations (one 64-step
+    turn of C1's unrolled loop and some of its rest; the float32 FMA chain
+    has overflowed to +inf by then, so it also runs 5, where at S = 16 a
+    4-step turn of the loop runs at finite values)."""
     from tfhe_omr_tpu_torch.ops import probes
 
     gen = torch.Generator(device=cuda).manual_seed(streams)
@@ -369,8 +371,8 @@ def test_probe_chain_and_mac_kernels_match_plain(cuda, streams):
     y = torch.randint(1, 1 << 10, (64, 513), generator=gen, device=cuda, dtype=torch.int32)
     xf = torch.rand((64, 513), generator=gen, device=cuda) * 0.5 + 0.5
     yf = torch.rand((64, 513), generator=gen, device=cuda) * 0.2 + 0.9
-    cases = [(x, y, op, 9) for op in probes.CHAIN_DTYPES[torch.int32]]
-    cases += [(x.long(), y.long(), "mul_add", 9), (xf, yf, "fma", 3)]
+    cases = [(x, y, op, 70) for op in probes.CHAIN_DTYPES[torch.int32]]
+    cases += [(x.long(), y.long(), "mul_add", 70), (xf, yf, "fma", 70), (xf, yf, "fma", 5)]
     for a, b, op, iters in cases:
         got = probes.probe_chain(a, b, op, iters, streams)
         assert torch.equal(got, probes.probe_chain_plain(a, b, op, iters, streams)), op
@@ -401,6 +403,27 @@ def test_probe_i8dot_kernel_matches_plain(cuda, shape, rounds):
     got = probes.probe_i8dot(a, b, rounds)
     assert build.LAUNCHES["probe_i8dot"] == 1
     assert torch.equal(got, probes.probe_i8dot_plain(a, b, rounds))
+
+
+def test_product_slots_are_the_products_sass(cuda):
+    """chip_smoke.py PRODUCT_SLOTS, the multiply slots of one Shoup and one
+    lazily summed modular product in 32- and 64-bit words, are those of the
+    products compiled alone (benches/probe_sass_torch.py --products) at
+    utils/rates.py's costs."""
+    import os
+    import sys
+
+    from tfhe_omr_tpu_torch.utils import rates
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path[:0] = [root, os.path.join(root, "benches")]
+    import chip_smoke
+    import probe_sass_torch
+
+    ops = probe_sass_torch.product_opcodes()
+    got = {bits: (rates.imad_slots(ops[f"shoup_{field}"]), rates.imad_slots(ops[f"summed_{field}"]))
+           for bits, field in ((32, 27), (64, 50))}
+    assert got == chip_smoke.PRODUCT_SLOTS, ops
 
 
 def test_bench_kernels_times_c3_at_the_dot_probes(cuda, capsys):

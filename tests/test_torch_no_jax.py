@@ -47,6 +47,7 @@ import mac_probe_torch
 import mosaic_unsupported_probe_torch
 import probe_sass_torch
 import probe_step_torch
+import chain_plan_torch
 import encoder_probe_torch
 import bench_torch
 import chip_smoke
@@ -171,7 +172,8 @@ def test_bench_script_smoke_on_cpu(bench):
                                     "benches/vpu_probe_torch.py",
                                     "benches/vpu_peak_probe_torch.py",
                                     "benches/mac_probe_torch.py",
-                                    "benches/mosaic_unsupported_probe_torch.py"])
+                                    "benches/mosaic_unsupported_probe_torch.py",
+                                    "benches/chain_plan_torch.py"])
 def test_scripts_refuse_to_run_on_the_host_unasked(script):
     """With no card and no ``--device cpu`` a script exits non-zero, names
     the flag and prints no result."""

@@ -13,10 +13,9 @@ the kernel's fmaf does), while the interpreted JAX probe may round the
 product and the sum apart. At 3 iterations each of its 6 operations differs
 by at most half an ulp and the coupled chain compounds that at most as a
 Fibonacci sequence, so the two are held within a relative 2^-17 (64 ulps).
-The kernel against the plain version is bit-equal: at 3 iterations every
-float64 sum of a product and its addend is exact, where the float64
-emulation of the fused operation is exact too (the plain version checks
-that and raises otherwise).
+The kernel against the plain version is bit-equal at any length: the plain
+version rounds the float64 sum to odd before its cast to float32, which is
+fmaf's one rounding (held here against the exact rational sum).
 
 The kernels run here through the host build of csrc/ (build.host_library,
 g++ against the stand-in cuda_runtime.h): probe_chain and probe_mac as they
@@ -25,16 +24,19 @@ the same swizzled offsets, each thread's wgmma fragment by the PTX ISA's
 layout, TMA stores and reduce-adds as copies and sums), so the pre-pass,
 the tiling, the splits of k and of the rounds, the ring, the masks and the
 fragment-to-C map are exercised; the descriptors only on a card.
-The four bench twins run at ``--tiny --device cpu``.
+The four bench twins and benches/chain_plan_torch.py run at ``--tiny
+--device cpu``.
 """
 
 import contextlib
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
 import types
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +55,7 @@ sys.path.insert(0, os.path.join(ROOT, "benches"))
 
 SHAPE = (8, 128)
 ITERS = 3
+CHAIN_ITERS = 70
 F32_RTOL = 2.0 ** -17
 SMS = 8  # the stand-in card's SMs: a product of fewer tiles splits them
 
@@ -235,18 +238,90 @@ CHAIN_CASES = ([(torch.int32, op) for op in probes.CHAIN_DTYPES[torch.int32]]
                + [(torch.int64, "mul_add"), (torch.float32, "fma")])
 
 
-@pytest.mark.parametrize("streams", probes.STREAMS)
-@pytest.mark.parametrize("dtype,op", CHAIN_CASES, ids=lambda v: str(v).split(".")[-1])
-def test_chain_kernel_on_host_matches_plain(host, dtype, op, streams):
+# on the stand-in card's 8 SMs (the plan splits below 1024 threads, 2048
+# for int64): 200 elements split S = 4 over 4 threads and S = 16 over 8 of
+# 2, the last block partial; 300 split S = 16 over 4 threads of 4 (int64:
+# 8 of 2); 2200 fill it unsplit, one element a thread
+CHAIN_SHAPES = [(2, 100), (3, 100), (20, 110)]
+
+
+@pytest.mark.parametrize("dtype,op,streams,shape", [
+    pytest.param(dtype, op, streams, shape, id=f"{str(dtype)[6:]}-{op}-{streams}" + (
+        "" if shape == CHAIN_SHAPES[0] else f"-n{shape[0] * shape[1]}"))
+    for shape in CHAIN_SHAPES for dtype, op in CHAIN_CASES for streams in probes.STREAMS])
+def test_chain_kernel_on_host_matches_plain(host, dtype, op, streams, shape):
+    """Every chain runs CHAIN_ITERS steps: one 64-step turn of the kernel's
+    unrolled loop (its parity-dependent pipes included) and some of its
+    rest. (The fma chain has overflowed to +inf within 6 steps by then:
+    test_chain_kernel_on_host_runs_the_fma_loop_at_finite_values holds its
+    loop at finite values.)"""
+    iters = CHAIN_ITERS
     if dtype == torch.float32:
-        x, y = _t(*_floats(8, (2, 100)))
+        x, y = _t(*_floats(8, shape))
     else:
-        x, y = (t.to(dtype) for t in _t(*_ints(8, (2, 100))))
+        x, y = (t.to(dtype) for t in _t(*_ints(8, shape)))
         x[0, :3] = torch.tensor([-(1 << 30), 0, (1 << 31) - 1]).to(dtype)
-    got = probes.probe_chain(x, y, op, ITERS, streams)
+    got = probes.probe_chain(x, y, op, iters, streams)
     assert build.LAUNCHES["probe_chain"] >= 1
-    want = probes.probe_chain_plain(x, y, op, ITERS, streams)
+    want = probes.probe_chain_plain(x, y, op, iters, streams)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("iters", [4, 5])
+def test_chain_kernel_on_host_runs_the_fma_loop_at_finite_values(host, iters):
+    """S = 16 unsplit (2200 elements fill the stand-in card): a turn of the
+    unrolled loop is 4 steps of the 16 streams, which run before any value
+    overflows; 5 iterations add one step of the rest. Bit-equal."""
+    x, y = _t(*_floats(15, (20, 110)))
+    assert probes.chain_plan(x.numel(), 16, SMS, torch.float32)["split"] == 1
+    assert bool(probes.probe_chain_plain(x, y, "fma", 4, 16).isfinite().all())
+    got = probes.probe_chain(x, y, "fma", iters, 16)
+    assert torch.equal(got, probes.probe_chain_plain(x, y, "fma", iters, 16))
+
+
+def test_chain_kernel_on_host_keeps_the_fma_sum_order(host):
+    """S = 16 split over 8 threads of 2: the element's first thread adds
+    a_0, b_0, ..., b_15 in that order, bit-equal to plain; summed the other
+    way round the same values differ, so an order fault would show."""
+    x, y = _t(*_floats(14, (2, 100)))
+    assert probes.chain_plan(x.numel(), 16, SMS, torch.float32)["split"] == 8
+    got = probes.probe_chain(x, y, "fma", ITERS, 16)
+    assert torch.equal(got, probes.probe_chain_plain(x, y, "fma", ITERS, 16))
+    st = [(x + float(s), y * torch.tensor(1 + 0.01 * s, dtype=torch.float32))
+          for s in range(16)]
+    for _ in range(ITERS):
+        st = [probes._chain_step("fma", a, b) for a, b in st]
+    backwards = st[15][1]
+    for _a, b in reversed(st[:15]):
+        backwards = backwards + b
+    assert not torch.equal(got, backwards + st[0][0])
+
+
+@pytest.mark.parametrize("n,streams,sms,dtype,want", [
+    # P1, P3, P6: (256, 1024) on an H100's 132 SMs, one element a thread
+    (262144, 4, 132, torch.int32, dict(per_thread=4, split=1, blocks=2048)),
+    (262144, 16, 132, torch.int32, dict(per_thread=16, split=1, blocks=2048)),
+    (262144, 1, 132, torch.int32, dict(per_thread=1, split=1, blocks=2048)),
+    (262144, 4, 132, torch.float32, dict(per_thread=4, split=1, blocks=2048)),
+    # P8: (64, 512), S = 4: int32 unsplit, int64 over two threads
+    (32768, 4, 132, torch.int32, dict(per_thread=4, split=1, blocks=256)),
+    (32768, 4, 132, torch.int64, dict(per_thread=2, split=2, blocks=512)),
+    # P3's smallest shape, (8, 512)
+    (4096, 16, 132, torch.int32, dict(per_thread=2, split=8, blocks=256)),
+    (4096, 4, 132, torch.int32, dict(per_thread=1, split=4, blocks=128)),
+    (200, 16, SMS, torch.int32, dict(per_thread=2, split=8, blocks=13)),
+    (300, 16, SMS, torch.int64, dict(per_thread=2, split=8, blocks=19)),
+])
+def test_chain_plan_fills_the_card(host, n, streams, sms, dtype, want):
+    """An element's streams are split over adjacent threads only where the
+    elements alone give an SM fewer than 128 threads a 32-bit word of a
+    stream, and over the fewest threads that reach that."""
+    plan = probes.chain_plan(n, streams, sms, dtype)
+    assert plan == want
+    fill = 128 * sms * (8 if dtype == torch.int64 else 4) // 4
+    assert plan["per_thread"] * plan["split"] == streams
+    assert n * plan["split"] >= fill or plan["split"] == streams
+    assert plan["split"] == 1 or n * plan["split"] // 2 < fill
 
 
 @pytest.mark.parametrize("streams", probes.STREAMS)
@@ -314,16 +389,55 @@ def test_wrappers_refuse_what_no_kernel_takes():
         probes.probe_i8dot(a, b, 1)
 
 
+def _fmaf_exact(a: float, b: float, c: float) -> float:
+    """a x b + c, exact as a fraction, rounded once to the nearest float32
+    (ties to even), subnormals and overflow to infinity included."""
+    q = Fraction(a) * Fraction(b) + Fraction(c)
+    if q == 0:
+        return 0.0
+    mag = abs(q)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    e -= Fraction(2) ** e > mag
+    quantum = Fraction(2) ** (max(e, -126) - 23)
+    n, rest = divmod(mag, quantum)
+    n += rest > quantum / 2 or (rest == quantum / 2 and n % 2 == 1)
+    near = n * quantum
+    return math.copysign(math.inf if near >= 2 ** 128 else float(near), q)
+
+
 @pytest.mark.parametrize("scale", [2.0 ** 30, 2.0 ** -40], ids=["large", "small"])
 def test_fma_plain_refuses_a_sum_float64_cannot_hold(scale):
-    """The float64 emulation of fmaf is exact only while the product's bits
-    and the addend's span at most 53: a large product and a small one both
-    break that at the first step, and the plain version says so."""
+    """A large product and a small one whose sum with the addend float64
+    cannot hold exactly (once refused): the plain version rounds it to odd
+    first, and each step is the exact sum rounded once to float32."""
     wide = 1.0 + 2.0 ** -23
     x = torch.full((2, 3), wide * scale)
     y = torch.full((2, 3), wide * (scale if scale > 1 else 1.0))
-    with pytest.raises(ValueError, match="not exact"):
-        probes.probe_chain_plain(x, y, "fma", 1, 1)
+    a = probes._fmaf(x, y, 1.5)
+    assert float(a[0, 0]) == _fmaf_exact(float(x[0, 0]), float(y[0, 0]), 1.5)
+    b = probes._fmaf(y, a, 0.5)
+    assert float(b[0, 0]) == _fmaf_exact(float(y[0, 0]), float(a[0, 0]), 0.5)
+    want = torch.full((2, 3), float(a[0, 0]) + float(b[0, 0]), dtype=torch.float32)
+    assert torch.equal(probes.probe_chain_plain(x, y, "fma", 1, 1), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fmaf_emulation_rounds_once(seed):
+    """The plain version's fmaf against the exact sum rounded once, over
+    operands of 2^-70 to 2^70 (subnormal and infinite results included),
+    and a sum just above a float32 midpoint that rounding twice (to float64,
+    then to float32) would take down to the even neighbour."""
+    rng = np.random.default_rng(seed)
+    mags = lambda: rng.standard_normal(500) * np.exp2(rng.integers(-70, 70, 500))
+    a, b, c = (mags().astype(np.float32) for _ in range(3))
+    for cc in (0.0, float(c[0]), 1.5, 0.5):
+        got = probes._fmaf(torch.tensor(a), torch.tensor(b), cc)
+        assert got.tolist() == [_fmaf_exact(float(u), float(v), cc) for u, v in zip(a, b)]
+    # -(1 + 2^-23) x 2^-24 (1 - 2^-23) + (1 + 2^-23) = 1 + 2^-24 + 2^-70
+    x = torch.tensor([-(1 + 2.0 ** -23)])
+    y = torch.tensor([2.0 ** -24 * (1 - 2.0 ** -23)])
+    assert float(probes._fmaf(x, y, 1 + 2.0 ** -23)) == 1 + 2.0 ** -23
+    assert float((x.double() * y.double() + (1 + 2.0 ** -23)).float()) == 1.0
 
 
 SPEC = {"int32": 128.0, "int32_mul": 64.0, "f32_fma": 128.0, "int8_mma": 8192.0}
@@ -332,9 +446,13 @@ SPEC = {"int32": 128.0, "int32_mul": 64.0, "f32_fma": 128.0, "int8_mma": 8192.0}
 @pytest.mark.parametrize("dtype,op,unit,ms", [
     (torch.int32, "add", "int32", 2 / 128),        # two adds: both pipes
     (torch.int32, "mul", "int32_mul", 2 / 64),      # two multiplies: the FMA pipe
-    (torch.int32, "sub_add", "int32", 1 / 128),     # b + (a - b) is a: one op
-    (torch.int64, "mul_add", "int32_mul", 3 / 64),  # three 32-bit multiplies
+    (torch.int32, "shift_add", "int32", 1 / 128),   # a's shift folds into the add
+    (torch.int64, "mul_add", "int32_mul", 4 / 64),  # IMAD.WIDE.U32 (two) and two IMADs
     (torch.float32, "fma", "f32_fma", 2 / 128),
+    (torch.int32, "sel_add", "int32", 3 / 128),     # compare, subtract under it, add
+    (torch.int32, "mulhi_add", "int32_mul", 2 / 64),  # IMAD.HI: two multiply slots
+    (torch.int32, "sub_add", "int32", 1 / 128),     # b + (a - b) is a: the subtract
+    (torch.int32, "mulwide_add", "int32_mul", 2 / 64),  # IMAD.WIDE: two slots
 ])
 def test_bound_is_set_by_the_slowest_unit(dtype, op, unit, ms):
     """1000 steps at the rates of one SM-clock a millisecond (rates in
@@ -399,6 +517,7 @@ def test_library_int_mm_equals_plain_at_the_probes_shapes(shape):
 @pytest.mark.parametrize("bench,key", [
     ("vpu_probe", "gops"), ("vpu_peak_probe", "gops"),
     ("mac_probe", "device"), ("mosaic_unsupported_probe", "int64"),
+    ("chain_plan", "split"),
 ])
 def test_probe_bench_twin_runs_tiny_on_cpu(bench, key):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

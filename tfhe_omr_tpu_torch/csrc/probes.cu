@@ -12,13 +12,27 @@
 //                  mosaic_unsupported_probe.py build_bdot.
 // The plain versions are ops/probes.py *_plain.
 //
-// probe_chain: one element per thread, S independent (a, b) pairs in
-// registers, the mutual recurrence a' = fa(a, b); b' = fb(b, a') for a
-// loop count given at run time; out = a_0 + b_0 + ... + b_{S-1}. Integer
-// arithmetic wraps (it is done in the unsigned twin of the type), `>>` is
-// arithmetic, the compare of sel_add signed. mulhi_add takes the signed
-// high word (__mulhi), int64 mul_add multiplies in 64 bits (mul.lo.s64),
-// fma is fmaf: one rounding per operation.
+// probe_chain: S independent (a, b) pairs an element in registers, the
+// mutual recurrence a' = fa(a, b); b' = fb(b, a') for a loop count given
+// at run time; out = a_0 + b_0 + ... + b_{S-1}. Integer arithmetic wraps
+// (it is done in the unsigned twin of the type), `>>` is arithmetic, the
+// compare of sel_add signed. mulhi_add takes the signed high word
+// (__mulhi), int64 mul_add multiplies in 64 bits, fma is fmaf: one
+// rounding per operation; mulwide_add (no TPU probe's) adds both words of
+// the unsigned 64-bit product. What bounds it: each op's least instruction
+// mix a step (utils/rates.py STEP_WORK) on the SM's pipes, the FMA pipe's
+// multiply slots (mul, mul_add, mulhi_add and mulwide_add: an IMAD.HI or
+// IMAD.WIDE is two slots; int64: an IMAD.WIDE and two IMADs, four) or the
+// issue of int32 instructions split between the ALU and FMA pipes (add,
+// mask_add, sel_add, sub_add). Its design against each: every step names
+// the pipe of its adds (Pipes: nvcc's own choice put most adds beside the
+// multiplies on the FMA pipe), sel_add, sub_add, mulwide_add and the int64
+// product are inline PTX in their least mix (sub_add's so that the compiler
+// cannot fold its steps), the loop is unrolled so that a and b keep their
+// registers, and where the elements are too few to keep the SMs'
+// schedulers busy an element's streams are split over adjacent threads
+// (chain_plan), the sum put together in shared memory in the plain
+// version's order.
 //
 // probe_mac: acc_s += (v_s + i) * k_s with v_s = x + s, k_s = y - s loop
 // invariant. The loop index passes through an empty asm so that the
@@ -46,7 +60,8 @@
 #include <cmath>
 #endif
 
-enum ProbeOp { ADD, MUL, MUL_ADD, SUB_ADD, SHIFT_ADD, MASK_ADD, SEL_ADD, MULHI_ADD, FMA };
+enum ProbeOp { ADD, MUL, MUL_ADD, SUB_ADD, SHIFT_ADD, MASK_ADD, SEL_ADD, MULHI_ADD, FMA,
+               MULWIDE_ADD };
 
 template <class T> struct Unsigned;
 template <> struct Unsigned<int> { typedef unsigned U; };
@@ -69,54 +84,205 @@ static __device__ __forceinline__ T wmul(T a, T b) {
 }
 static __device__ __forceinline__ float wadd(float a, float b) { return a + b; }
 
+// Which pipe an add takes is the compiler's choice (IADD3 on the ALU pipe
+// or IMAD.IADD on the FMA pipe), and left to itself nvcc put up to 13 of
+// every 16 adds of a chain on the FMA pipe beside its multiplies. A chain
+// step names the pipe instead, through two kernel arguments the compiler
+// cannot see through, zero (0) and one (1): x + y + zero has three
+// addends, which only IADD3 takes; x * one + y is an IMAD.
+template <class T>
+struct Pipes {
+  T zero, one;
+  __device__ __forceinline__ T alu_add(T x, T y) const { return wadd(wadd(x, y), zero); }
+  __device__ __forceinline__ T fma_add(T x, T y) const { return wadd(wmul(x, one), y); }
+};
+
+// One step of pair (a, b); `odd` is the step's parity, for the ops whose
+// least mix takes turns between the pipes.
 template <int OP, class T>
-static __device__ __forceinline__ void chain_step(T& a, T& b) {
+static __device__ __forceinline__ void chain_step(T& a, T& b, const Pipes<T>& p, bool odd) {
   if constexpr (OP == FMA) {
     a = fmaf(a, b, 1.5f);
     b = fmaf(b, a, 0.5f);
-  } else {
+  } else if constexpr (OP == SEL_ADD) {
+    static_assert(sizeof(T) == 4, "sel_add runs in int32");
+#ifdef __CUDACC__
+    // the compare (ALU), the subtract under its predicate and the add: an
+    // even step subtracts on the FMA pipe (a + b x -one) and adds on the
+    // ALU pipe, an odd one adds on the FMA pipe, so that two steps' six
+    // instructions can split three and three (nvcc's own select spent a
+    // move or a SEL more a step)
+    if (!odd)
+      asm("{\n\t.reg .pred q;\n\tsetp.gt.s32 q, %0, %1;\n\t"
+          "@q mad.lo.s32 %0, %1, %3, %0;\n\tadd.s32 %1, %1, %0;\n\tadd.s32 %1, %1, %2;\n\t}"
+          : "+r"(a), "+r"(b) : "r"(p.zero), "r"(-p.one));
+    else
+      asm("{\n\t.reg .pred q;\n\tsetp.gt.s32 q, %0, %1;\n\t@q sub.s32 %0, %0, %1;\n\t"
+          "mad.lo.s32 %1, %0, %2, %1;\n\t}"
+          : "+r"(a), "+r"(b) : "r"(p.one));
+#else
+    a = a > b ? wsub(a, b) : a;
+    b = wadd(b, a);
+#endif
+  } else if constexpr (OP == MUL) {
+    a = wmul(a, b);
+    b = wmul(b, a);
+  } else if constexpr (OP == ADD) {
+    a = p.alu_add(a, b);
+    b = p.fma_add(a, b);
+  } else if constexpr (OP == MASK_ADD) {
+    a = a & b;
+    b = p.fma_add(a, b);
+  } else if constexpr (OP == MUL_ADD && sizeof(T) == 8) {
+#ifdef __CUDACC__
+    // the low word of a 64 x 64 product in its least: IMAD.WIDE.U32 of the
+    // low words and two IMADs that add the cross products into its high
+    // word (nvcc's own spent an IMAD.IADD more a step)
+    asm("{\n\t.reg .u32 al, ah, bl, bh, l, h;\n\t.reg .u64 w;\n\t"
+        "mov.b64 {al, ah}, %0;\n\tmov.b64 {bl, bh}, %1;\n\t"
+        "mul.wide.u32 w, al, bl;\n\tmov.b64 {l, h}, w;\n\t"
+        "mad.lo.u32 h, al, bh, h;\n\tmad.lo.u32 h, ah, bl, h;\n\tmov.b64 %0, {l, h};\n\t}"
+        : "+l"(a) : "l"(b));
+#else
+    a = wmul(a, b);
+#endif
+    b = p.alu_add(b, a);
+  } else if constexpr (OP == MUL_ADD || OP == MULHI_ADD) {
+    if constexpr (OP == MUL_ADD) a = wmul(a, b);
+    else a = __mulhi(a, b);
+    b = p.alu_add(b, a);
+  } else if constexpr (OP == SUB_ADD) {
+    static_assert(sizeof(T) == 4, "sub_add runs in int32");
+    // b + (a - b) is a, so the step is its subtract. The pair (a, b) ->
+    // (a - b, a) comes back every 6 steps, and over the unrolled loop nvcc
+    // folded 64 steps into a few instructions: the subtract is inline PTX
+    // that neither nvcc nor ptxas can fold, a - b + zero (one IADD3, ALU
+    // pipe) on an even step and a + b x -one (one IMAD, FMA pipe) on an odd
+    // one, so that the two pipes share the steps (IADD3 alone issues at
+    // half the SM's integer rate)
     T a2;
-    if constexpr (OP == ADD || OP == MUL) {
-      a2 = OP == ADD ? wadd(a, b) : wmul(a, b);
-      b = OP == ADD ? wadd(b, a2) : wmul(b, a2);
-    } else {
-      if constexpr (OP == MUL_ADD) a2 = wmul(a, b);
-      if constexpr (OP == SUB_ADD) a2 = wsub(a, b);
-      if constexpr (OP == SHIFT_ADD) a2 = a >> 1;
-      if constexpr (OP == MASK_ADD) a2 = a & b;
-      if constexpr (OP == SEL_ADD) a2 = a > b ? wsub(a, b) : a;
-      if constexpr (OP == MULHI_ADD) a2 = __mulhi(a, b);
-      b = wadd(b, a2);
-    }
+#ifdef __CUDACC__
+    if (!odd)
+      asm("{\n\t.reg .s32 t;\n\tsub.s32 t, %1, %2;\n\tadd.s32 %0, t, %3;\n\t}"
+          : "=r"(a2) : "r"(a), "r"(b), "r"(p.zero));
+    else
+      asm("mad.lo.s32 %0, %2, %3, %1;" : "=r"(a2) : "r"(a), "r"(b), "r"(-p.one));
+#else
+    a2 = wsub(a, b);
+#endif
+    b = a;
+    a = a2;
+  } else if constexpr (OP == MULWIDE_ADD) {
+    // a' = b + the low and the high word of the unsigned 64-bit product
+    // a x b, b' = a': one IMAD.WIDE.U32 and one IADD3 a step. No TPU probe
+    // has it: it times the wide product's multiply slots beside the IMAD's
+    // (utils/rates.py)
+#ifdef __CUDACC__
+    asm("{\n\t.reg .u64 w;\n\t.reg .u32 l, h;\n\tmul.wide.u32 w, %0, %1;\n\t"
+        "mov.b64 {l, h}, w;\n\tadd.u32 l, l, h;\n\tadd.u32 %0, l, %1;\n\t}"
+        : "+r"(a) : "r"(b));
+#else
+    const unsigned long long w = (unsigned long long)(unsigned)a * (unsigned)b;
+    a = (T)((unsigned)b + (unsigned)w + (unsigned)(w >> 32));
+#endif
+    b = a;
+  } else {
+    // b + (a >> 1): the run of shifts becomes the add's own shift (one
+    // LEA.HI), the compiler's fold and this step's least
+    const T a2 = a >> 1;
+    b = wadd(b, a2);
     a = a2;
   }
 }
 
-template <int OP, class T, int S>
-__global__ void __launch_bounds__(128)
+// How an element's streams are laid over threads; omr_probe_chain_plan
+// tells the wrapper. Where the elements alone give an SM fewer than
+// CHAIN_FILL threads for each 32-bit word of a stream (one warp a
+// scheduler; two for int64, whose step is a chain of five dependent
+// instructions against two), an element's S streams are split over `split`
+// adjacent threads of per_thread streams each, the fewest threads that
+// reach it (at most S). A thread's own streams hide each other's latency
+// better than more threads do: at P8's (64, 512), S = 4 the int32 chains
+// ran fastest unsplit, the int64 one split in two, and at (8, 512), S = 16
+// a split over 8 threads ran 3.3x faster than none (PERF.md section 6).
+constexpr int CHAIN_THREADS = 128, CHAIN_FILL = 128;
+struct ChainPlan {
+  int per_thread, split;
+  long long blocks;
+};
+
+static ChainPlan chain_layout(long long n, int streams, int split) {
+  return ChainPlan{streams / split, split, (n * split + CHAIN_THREADS - 1) / CHAIN_THREADS};
+}
+
+static ChainPlan chain_plan(long long n, int streams, int word_bytes, int sms) {
+  const long long fill = (long long)sms * CHAIN_FILL * (word_bytes / 4);
+  int split = 1;
+  while (split < streams && n * split < fill) split *= 2;
+  return chain_layout(n, streams, split);
+}
+
+// Thread g holds streams part * SP .. part * SP + SP - 1 of element
+// g / split (part = g % split), so an element's threads are adjacent in
+// one block. The loop is unrolled to 64 steps of the thread's streams, so
+// that a and b keep their registers across the back edge and the loop's
+// own instructions are few; the remainder runs one step at a time.
+// Split elements put their sum together in shared memory: every thread
+// leaves its b's there, and the element's first thread adds a_0, b_0, ...,
+// b_{S-1} in that order (the order of the plain version: float addition
+// is not associative). Threads past n run element n - 1 and write nothing,
+// so that every thread reaches the barrier.
+template <int OP, class T, int SP>
+__global__ void __launch_bounds__(CHAIN_THREADS)
 probe_chain_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out,
-                   long long n, int iters) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  T a[S], b[S];
+                   long long n, int iters, int split, int zero, int one) {
+  constexpr int U = 64 / SP;
+  const long long g = (long long)blockIdx.x * CHAIN_THREADS + threadIdx.x;
+  const bool live = g / split < n;
+  const long long e = live ? g / split : n - 1;
+  const int part = (int)(g % split);
+  T a[SP], b[SP];
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
+  for (int j = 0; j < SP; ++j) {
+    const int s = part * SP + j;
     if constexpr (OP == FMA) {
-      a[s] = x[e] + (float)s;
-      b[s] = y[e] * (float)(1.0 + 0.01 * s);
+      a[j] = x[e] + (float)s;
+      b[j] = y[e] * (float)(1.0 + 0.01 * s);
     } else {
-      a[s] = wadd(x[e], (T)s);
-      b[s] = wadd(y[e], (T)s);
+      a[j] = wadd(x[e], (T)s);
+      b[j] = wadd(y[e], (T)s);
     }
   }
-  for (int it = 0; it < iters; ++it) {
+  const Pipes<T> p{(T)zero, (T)one};
+  int it = 0;
+#pragma unroll 1
+  for (; it + U <= iters; it += U) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) chain_step<OP>(a[s], b[s]);
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < SP; ++j) chain_step<OP>(a[j], b[j], p, u % 2);
   }
-  T acc = a[0];
+#pragma unroll 1
+  for (; it < iters; ++it)
 #pragma unroll
-  for (int s = 0; s < S; ++s) acc = wadd(acc, b[s]);
-  out[e] = acc;
+    for (int j = 0; j < SP; ++j) chain_step<OP>(a[j], b[j], p, false);
+  if (split == 1) {
+    T acc = a[0];
+#pragma unroll
+    for (int j = 0; j < SP; ++j) acc = wadd(acc, b[j]);
+    if (live) out[e] = acc;
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* bs = reinterpret_cast<T*>(smem_raw);
+#pragma unroll
+  for (int j = 0; j < SP; ++j) bs[threadIdx.x * SP + j] = b[j];
+  __syncthreads();
+  if (live && part == 0) {
+    T acc = a[0];
+    for (int k = 0; k < split * SP; ++k) acc = wadd(acc, bs[threadIdx.x * SP + k]);
+    out[e] = acc;
+  }
 }
 
 template <int S>
@@ -353,34 +519,59 @@ probe_i8dot_kernel(const __grid_constant__ TmaMap ta, const __grid_constant__ Tm
 }
 
 // ------------------------------------------------------------ entry points
-template <int OP, class T, int S>
+template <int OP, class T, int SP>
 static int chain_launch(const void* x, const void* y, void* out, int64_t n, int iters,
-                        void* stream) {
-  void (*kernel)(const T*, const T*, T*, long long, int) = probe_chain_kernel<OP, T, S>;
-  OMR_LAUNCH(kernel, (unsigned)((n + 127) / 128), 128, 0, stream, (const T*)x,
-             (const T*)y, (T*)out, (long long)n, iters);
+                        const ChainPlan& p, void* stream) {
+  void (*kernel)(const T*, const T*, T*, long long, int, int, int, int) =
+      probe_chain_kernel<OP, T, SP>;
+  const int smem = p.split > 1 ? CHAIN_THREADS * SP * (int)sizeof(T) : 0;
+  OMR_LAUNCH(kernel, (unsigned)p.blocks, CHAIN_THREADS, smem, stream, (const T*)x,
+             (const T*)y, (T*)out, (long long)n, iters, p.split, 0, 1);
   return (int)cudaGetLastError();
 }
 
 template <int OP, class T>
-static int chain_streams(int streams, const void* x, const void* y, void* out, int64_t n,
-                         int iters, void* stream) {
-  switch (streams) {
-    case 1: return chain_launch<OP, T, 1>(x, y, out, n, iters, stream);
-    case 4: return chain_launch<OP, T, 4>(x, y, out, n, iters, stream);
-    case 16: return chain_launch<OP, T, 16>(x, y, out, n, iters, stream);
+static int chain_per_thread(const void* x, const void* y, void* out, int64_t n, int iters,
+                            const ChainPlan& p, void* stream) {
+  switch (p.per_thread) {
+    case 1: return chain_launch<OP, T, 1>(x, y, out, n, iters, p, stream);
+    case 2: return chain_launch<OP, T, 2>(x, y, out, n, iters, p, stream);
+    case 4: return chain_launch<OP, T, 4>(x, y, out, n, iters, p, stream);
+    case 8: return chain_launch<OP, T, 8>(x, y, out, n, iters, p, stream);
+    case 16: return chain_launch<OP, T, 16>(x, y, out, n, iters, p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+static const int CHAIN_WORD_BYTES[3] = {4, 8, 4};  // by dtype: int32, int64, float32
+
+// The layout of a chain of n elements of `dtype` and `streams` streams for
+// `sms` SMs (chain_plan): out = {per_thread, split, blocks}.
+extern "C" int omr_probe_chain_plan(int64_t n, int dtype, int streams, int sms, int64_t* out) {
+  if (n <= 0 || dtype < 0 || dtype > 2 || (streams != 1 && streams != 4 && streams != 16) ||
+      sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const ChainPlan p = chain_plan(n, streams, CHAIN_WORD_BYTES[dtype], sms);
+  const int64_t v[3] = {p.per_thread, p.split, p.blocks};
+  memcpy(out, v, sizeof(v));
+  return 0;
+}
+
 // x, y, out (n) contiguous, of the type `dtype` names (0 int32, 1 int64,
-// 2 float32); op a ProbeOp: int32 takes ADD .. MULHI_ADD, int64 MUL_ADD,
-// float32 FMA; streams 1, 4 or 16.
+// 2 float32); op a ProbeOp: int32 takes ADD .. MULHI_ADD and MULWIDE_ADD,
+// int64 MUL_ADD, float32 FMA; streams 1, 4 or 16, each element's split
+// over `split` adjacent threads (a power of two up to streams: the
+// plan's, or any other to time it).
 extern "C" int omr_probe_chain(int op, int dtype, int streams, const void* x, const void* y,
-                               void* out, int64_t n, int iters, void* stream) {
-  if (n <= 0 || n > (int64_t)INT32_MAX * 128 || iters < 0) return (int)cudaErrorInvalidValue;
+                               void* out, int64_t n, int iters, int split, void* stream) {
+  if (n <= 0 || iters < 0 || dtype < 0 || dtype > 2 ||
+      (streams != 1 && streams != 4 && streams != 16) || split < 1 || split > streams ||
+      (split & (split - 1)))
+    return (int)cudaErrorInvalidValue;
+  const ChainPlan p = chain_layout(n, streams, split);
+  if (p.blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
 #define OMR_CHAIN(OP, T)                                                  \
-  if (op == OP) return chain_streams<OP, T>(streams, x, y, out, n, iters, stream);
+  if (op == OP) return chain_per_thread<OP, T>(x, y, out, n, iters, p, stream);
   if (dtype == 0) {
     OMR_CHAIN(ADD, int)
     OMR_CHAIN(MUL, int)
@@ -390,6 +581,7 @@ extern "C" int omr_probe_chain(int op, int dtype, int streams, const void* x, co
     OMR_CHAIN(MASK_ADD, int)
     OMR_CHAIN(SEL_ADD, int)
     OMR_CHAIN(MULHI_ADD, int)
+    OMR_CHAIN(MULWIDE_ADD, int)
   } else if (dtype == 1) {
     OMR_CHAIN(MUL_ADD, long long)
   } else if (dtype == 2) {

@@ -8,8 +8,9 @@ the card gives that unit's rate.
 
 * :func:`probe_chain` - the mutual recurrence ``a' = fa(a, b); b' = fb(b,
   a')`` on S independent (a, b) pairs an element, ``out = a_0 + sum b_s``
-  (int32 ALU chains, the signed high word of a 32 x 32 product, int64
-  multiply, float32 FMA);
+  (int32 ALU chains, the signed high word of a 32 x 32 product and both
+  words of the unsigned one, int64 multiply, float32 FMA); :func:`chain_plan`
+  says how its pairs are laid over the card's threads;
 * :func:`probe_mac` - ``acc_s += (v_s + i) * k_s`` with loop-invariant v, k;
 * :func:`probe_i8dot` - int8 (g, m, k) @ (g, k, n) -> int32 summed over
   ``rounds``, on the tensor cores (``wgmma`` s8 from TMA-fed shared memory).
@@ -30,9 +31,9 @@ from tfhe_omr_tpu_torch.utils import build
 
 #: the ops of :func:`probe_chain`, in the order of ``ProbeOp`` in probes.cu
 CHAIN_OPS = ("add", "mul", "mul_add", "sub_add", "shift_add", "mask_add", "sel_add",
-             "mulhi_add", "fma")
+             "mulhi_add", "fma", "mulwide_add")
 #: the element types a chain op runs in on the card
-CHAIN_DTYPES = {torch.int32: CHAIN_OPS[:8], torch.int64: ("mul_add",),
+CHAIN_DTYPES = {torch.int32: CHAIN_OPS[:8] + ("mulwide_add",), torch.int64: ("mul_add",),
                 torch.float32: ("fma",)}
 STREAMS = (1, 4, 16)
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
@@ -49,19 +50,19 @@ def _check_chain(x: torch.Tensor, y: torch.Tensor, op: str, streams: int) -> Non
 
 
 def _fmaf(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
-    """fmaf(a, b, c): the product of two float32s is exact in float64, and
-    the sum rounds once to float32 where the float64 sum is exact too. That
-    holds while the product's bits and c's span at most 53, which fails for
-    large and for small products alike: the sum's rounding error is checked
-    (TwoSum) and a sum that float64 cannot hold raises."""
+    """fmaf(a, b, c), rounded once. The product of two float32s is exact in
+    float64; its sum with c is rounded to odd in float64 (the sum rounded
+    to nearest, its error from TwoSum, and a sum whose error is not zero
+    moved one ulp toward it where its last bit is even), and a sum rounded
+    to odd with 53 bits rounds to the float32 nearest the exact sum (at
+    least 24 + 2 bits), so the cast to float32 is fmaf's one rounding."""
     p = a.double() * b.double()
     s = p + c
     pp = s - c
     err = (p - pp) + (c - (s - pp))
-    if not bool((err == 0).all()):
-        raise ValueError("probe_chain_plain: an fma sum is not exact in float64, "
-                         "so the emulation of fmaf would round twice")
-    return s.float()
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf).to(s))
+    return torch.where((err != 0) & err.isfinite() & even, away, s).float()
 
 
 def _chain_step(op: str, a: torch.Tensor, b: torch.Tensor):
@@ -74,6 +75,14 @@ def _chain_step(op: str, a: torch.Tensor, b: torch.Tensor):
     if op == "mul":
         a2 = a * b
         return a2, b * a2
+    if op == "mulwide_add":  # b + both words of the unsigned product, in int64
+        au, bu = a.long() & 0xFFFFFFFF, b.long() & 0xFFFFFFFF
+        low, high = au * (bu & 0xFFFF), au * (bu >> 16)  # each below 2^48
+        lo = (low + ((high & 0xFFFF) << 16)) & 0xFFFFFFFF
+        hi = ((low >> 16) + high) >> 16
+        a2 = (bu + lo + hi) & 0xFFFFFFFF
+        a2 = (a2 - ((a2 >> 31) << 32)).int()
+        return a2, a2
     a2 = {
         "mul_add": lambda: a * b,
         "sub_add": lambda: a - b,
@@ -88,8 +97,7 @@ def _chain_step(op: str, a: torch.Tensor, b: torch.Tensor):
 def probe_chain_plain(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
                       streams: int) -> torch.Tensor:
     """The chain in torch's own arithmetic on x's device: int32 and int64
-    wrap, ``fma`` rounds its product-and-sum once (:func:`_fmaf`; raises
-    where float64 cannot emulate that exactly)."""
+    wrap, ``fma`` rounds its product-and-sum once (:func:`_fmaf`)."""
     _check_chain(x, y, op, streams)
     if op == "fma":
         st = [(x + float(s), y * torch.tensor(1 + 0.01 * s, dtype=torch.float32))
@@ -104,11 +112,41 @@ def probe_chain_plain(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
     return acc
 
 
+#: the fields of ``omr_probe_chain_plan`` (csrc/probes.cu ``chain_plan``), in order
+CHAIN_PLAN_FIELDS = ("per_thread", "split", "blocks")
+
+
+def chain_plan(n: int, streams: int, sms: int, dtype: torch.dtype = torch.int32) -> dict:
+    """How the kernel lays n elements of ``dtype`` with ``streams`` streams
+    over the threads of a card of ``sms`` SMs: the streams a thread holds,
+    the threads an element's streams are split over and the blocks."""
+    lib = build.library()
+    out = (ctypes.c_int64 * len(CHAIN_PLAN_FIELDS))()
+    build.check(lib, lib.omr_probe_chain_plan(n, _DTYPE_CODE[dtype], streams, sms, out),
+                "probe_chain_plan")
+    return dict(zip(CHAIN_PLAN_FIELDS, out))
+
+
 def probe_chain(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
                 streams: int) -> torch.Tensor:
-    """:func:`probe_chain_plain` through ``csrc/probes.cu`` on a card: one
-    element a thread, the S pairs in registers, ``iters`` given at run
-    time."""
+    """:func:`probe_chain_plain` through ``csrc/probes.cu`` on a card: the
+    S pairs in registers, an element's pairs split over adjacent threads
+    where the elements alone do not fill the card (:func:`chain_plan`),
+    ``iters`` given at run time."""
+    _check_chain(x, y, op, streams)
+    if build.device_kind(x) == "cpu" or x.numel() == 0:
+        return probe_chain_split(x, y, op, iters, streams, 1)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return probe_chain_split(x, y, op, iters, streams,
+                             chain_plan(x.numel(), streams, sms, x.dtype)["split"])
+
+
+def probe_chain_split(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
+                      streams: int, split: int) -> torch.Tensor:
+    """:func:`probe_chain` with each element's streams over ``split``
+    adjacent threads (a power of two up to ``streams``), whatever
+    :func:`chain_plan` would pick: how ``benches/chain_plan_torch.py`` times
+    every split."""
     _check_chain(x, y, op, streams)
     if build.device_kind(x) == "cpu":
         return probe_chain_plain(x, y, op, iters, streams)
@@ -120,7 +158,7 @@ def probe_chain(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
     with torch.cuda.device(x.device):
         rc = lib.omr_probe_chain(CHAIN_OPS.index(op), _DTYPE_CODE[x.dtype], streams,
                                  build.ptr(x), build.ptr(y), build.ptr(out), x.numel(),
-                                 iters, build.stream_of(x))
+                                 iters, split, build.stream_of(x))
     build.check(lib, rc, "probe_chain")
     build.LAUNCHES["probe_chain"] += 1
     return out

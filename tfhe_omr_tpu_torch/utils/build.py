@@ -51,7 +51,8 @@ _BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U64,
             _I32, _I64, _I32, _I32, _I32, _P]
 _TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P, _U64, _U64,
                _I32, _I64, _I32, _I32, _P]
-_PROBE_CHAIN_ARGS = [_I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P]
+_PROBE_CHAIN_ARGS = [_I32, _I32, _I32, _P, _P, _P, _I64, _I32, _I32, _P]
+_PROBE_CHAIN_PLAN_ARGS = [_I64, _I32, _I32, _I32, _P]
 _PROBE_MAC_ARGS = [_I32, _P, _P, _P, _I64, _I32, _P]
 _PROBE_I8DOT_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P]
 _PROBE_I8DOT_PLAN_ARGS = [_I64, _I32, _I32, _I32, _I32, _I32, _P]
@@ -158,6 +159,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("omr_blind_rotate_profiled", _BR_ARGS + [_P, _I32]),
         ("omr_trace", _TRACE_ARGS),
         ("omr_probe_chain", _PROBE_CHAIN_ARGS),
+        ("omr_probe_chain_plan", _PROBE_CHAIN_PLAN_ARGS),
         ("omr_probe_mac", _PROBE_MAC_ARGS),
         ("omr_probe_i8dot", _PROBE_I8DOT_ARGS),
         ("omr_probe_i8dot_plan", _PROBE_I8DOT_PLAN_ARGS),

@@ -8,11 +8,33 @@ multiprocessor of an H100 (SM 9.0), times the SMs and the top SM clock
 
 * ``int32``: 128 integer instructions (four schedulers issue one warp
   instruction each a clock; IADD3, LOP3, LEA, SHF, ISETP, SEL on the ALU
-  pipe, IMAD on the FMA pipe, side by side);
-* ``int32_mul``: 64 of them multiplies (IMAD, IMAD.HI, IMAD.WIDE: the FMA
-  pipe's integer half);
+  pipe, the IMAD forms on the FMA pipe, side by side, each pipe half of
+  the 128: a chain whose instructions all take one pipe, as shift_add's
+  LEA.HI do, reaches at most half of its bound);
+* ``int32_mul``: 64 multiply slots of the FMA pipe's integer half. An IMAD
+  takes one, an IMAD.HI (the high word, ``__mulhi`` / ``__umulhi``) and an
+  IMAD.WIDE (the 64-bit product of two words) two each;
 * ``f32_fma``: 128 float32 FMAs;
 * ``int8_mma``: 8192 dense int8 tensor-core operations (4096 MACs).
+
+Why two slots for the high word and the wide product. The CUDA C++
+Programming Guide's table of arithmetic instruction throughput lists, for
+compute capability 9.0, 64 results a clock an SM for "32-bit integer
+multiply, multiply-add, extended-precision multiply-add" and says nothing of
+the high word. The card says otherwise (NVIDIA H100 80GB HBM3, 700.00 W,
+``chip_smoke.py`` phase 9 at (256, 1024), the whole card's threads
+resident; ``benches/probe_sass_torch.py --filter probe_chain`` for the
+instructions): the ``mul`` chain, two IMADs a step and nothing else in its
+loop, runs at 0.964 of 64 IMADs a clock, and the ``mulhi_add`` chain, whose
+loop issues one IMAD.HI and one IADD3 (on the ALU pipe) a step, at 0.488 of
+the ``mul`` chain's rate in high words: half, so two slots each. (With 7 of
+every 16 adds beside the high words on the FMA pipe, as nvcc placed them
+itself, it ran at 0.43 of it.) Likewise the ``mulwide_add`` chain, whose
+loop issues one IMAD.WIDE.U32 and one IADD3 a step (S = 4; 0.4695 of the
+``mul`` chain's rate in wide products, where one slot each would allow
+about 1.0). So IMAD.HI and IMAD.WIDE count two slots, the least the card
+was seen to need; IMAD.IADD and IMAD.MOV (no product) count as int32
+instructions.
 
 A bound is the larger of each unit's work over its rate and the bytes
 (inputs read once, outputs written once) over the memory rate.
@@ -34,13 +56,19 @@ DOT_PROBES = {"P2": (1, 2048, 2048, 256, 8), "P5": (256, 384, 96, 128, 512),
               "P7": (1, 768, 192, 128, 16384), "P9": (2048, 48, 12, 128, 1)}
 
 #: the least work of one step of a probe chain, an element and a stream, by
-#: unit: int32 instructions (of them multiplies; a multiply-add is one) or
-#: float32 FMAs. Folds the compiler may make are taken: sub_add's
-#: b + (a - b) is a, shift_add's run of shifts of a becomes the add's own
-#: shift (LEA.HI), sel_add's compare and select fold where the order of a and
-#: b is known, so each of them needs one add a step at least. int64 is the
-#: low word of a 64 x 64 product (three 32-bit multiplies) and a 64-bit add
-#: (two). The MAC's step is the add of i and one multiply-add.
+#: unit: int32 instructions (of them multiply slots: an IMAD is one, an
+#: IMAD.HI or IMAD.WIDE two) or float32 FMAs. Folds the compiler may make
+#: within a step are taken: sub_add's b + (a - b) is a, so its step is the
+#: subtract (the kernel keeps the compiler from folding whole steps: its
+#: pair (a, b) -> (a - b, a) comes back every 6 steps); shift_add's run of
+#: shifts of a becomes the add's own shift (LEA.HI), one instruction a step
+#: (fewer once a has shifted to 0 or -1, 31 steps in).
+#: sel_add's a > b is a signed compare of two wrapping values that the code
+#: cannot order, so its step is the compare, the subtract under its
+#: predicate and the add: three. mulhi_add is one IMAD.HI and an add,
+#: mulwide_add one IMAD.WIDE.U32 and an add. int64 is the low word of a
+#: 64 x 64 product (IMAD.WIDE.U32 and two IMADs) and a 64-bit add (two).
+#: The MAC's step is the add of i and one multiply-add.
 STEP_WORK = {
     ("int32", "add"): {"int32": 2},
     ("int32", "mul"): {"int32": 2, "int32_mul": 2},
@@ -48,12 +76,28 @@ STEP_WORK = {
     ("int32", "sub_add"): {"int32": 1},
     ("int32", "shift_add"): {"int32": 1},
     ("int32", "mask_add"): {"int32": 2},
-    ("int32", "sel_add"): {"int32": 1},
-    ("int32", "mulhi_add"): {"int32": 2, "int32_mul": 1},
+    ("int32", "sel_add"): {"int32": 3},
+    ("int32", "mulhi_add"): {"int32": 2, "int32_mul": 2},
+    ("int32", "mulwide_add"): {"int32": 2, "int32_mul": 2},
     ("int32", "mac"): {"int32": 2, "int32_mul": 1},
-    ("int64", "mul_add"): {"int32": 5, "int32_mul": 3},
+    ("int64", "mul_add"): {"int32": 5, "int32_mul": 4},
     ("float32", "fma"): {"f32_fma": 2},
 }
+
+
+def imad_slots(opcodes: dict) -> int:
+    """The multiply slots of ``{SASS opcode: count}``: an IMAD.HI or
+    IMAD.WIDE (any suffix) two, IMAD.MOV, IMAD.IADD and IMAD.SHL (no
+    product of two registers) none, any other IMAD form one."""
+    slots = 0
+    for opcode, count in opcodes.items():
+        form = opcode.split(".")
+        if form[0] != "IMAD":
+            continue
+        kind = form[1] if len(form) > 1 else ""
+        slots += count * (2 if kind in ("HI", "WIDE") else 0 if kind in ("MOV", "IADD", "SHL")
+                          else 1)
+    return slots
 
 
 def step_work(dtype: torch.dtype, op: str, steps: int) -> dict:

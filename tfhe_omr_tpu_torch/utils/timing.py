@@ -106,6 +106,16 @@ def graphed_ms(fn, device, reps: int = 5, calls: int = 10) -> float:
     return median_ms(cuda_graph(fn, device, calls).replay, device, reps) / calls
 
 
+def card_ms(fn, device, reps: int = 5) -> float:
+    """Milliseconds a call of ``fn`` takes the device: on a card from a CUDA
+    graph (:func:`graphed_ms`), so that a short kernel is not timed by the
+    host's work between launches; on the CPU :func:`median_ms`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return median_ms(fn, device, reps)
+    return graphed_ms(fn, device, reps)
+
+
 class StageTimer:
     """Accumulating wall-clock stage timer that synchronises ``device``."""
 

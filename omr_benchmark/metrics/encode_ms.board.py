@@ -1,0 +1,7 @@
+"""Mean ms a board of the traced window spent in the benchmark's "encode"
+span (ends in a synchronisation of every card)."""
+
+
+def read(run):
+    s = run.spans.get("encode")
+    return 1e3 * sum(s) / len(s) if s else None

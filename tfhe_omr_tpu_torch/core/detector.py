@@ -23,6 +23,11 @@ device, taken to the NTT domain (the q2 NTT kernel on a card), multiplied
 into the pertinency ciphertexts and summed over the messages mod q2. The
 JAX package's ``lax.scan`` over whole chunks plus a ragged-tail call is
 one Python loop here.
+
+``detect``, its three stages, both encoders, their draws and each device's
+rows run inside the profiler spans of :mod:`tfhe_omr_tpu_torch.utils.spans`
+(``detect``, ``detect.stage1``-``3``, ``encode.index``, ``encode.payload``,
+``encode.draws``, ``encode.rows/<device>``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from tfhe_omr_tpu_torch.ops.fused import (
 )
 from tfhe_omr_tpu_torch.utils import build
 from tfhe_omr_tpu_torch.utils.build import resolve_device
+from tfhe_omr_tpu_torch.utils.spans import span, spanned
 from tfhe_omr_tpu_torch.utils.timing import StageTimer, synchronize
 
 
@@ -178,6 +184,7 @@ class Detector:
         return other
 
     # --------------------------------------------------------------- stages
+    @spanned("detect.stage1")
     def stage1(self, clue_a: torch.Tensor, clue_b7: torch.Tensor,
                plain: bool = False):
         """Extract + first-level bootstrapping + key switch + mod switch
@@ -202,6 +209,7 @@ class Detector:
         ms_b = (ms_b + self.inter_offset) & (self.q_inter - 1)
         return ms_a, ms_b
 
+    @spanned("detect.stage2")
     def stage2(self, ms_a: torch.Tensor, ms_b: torch.Tensor,
                plain: bool = False) -> torch.Tensor:
         """Second-level blind rotation (``detector.rs:599-624``) -> acc2
@@ -211,6 +219,7 @@ class Detector:
         br = blind_rotate_plain if plain else blind_rotate
         return br(acc2, ms_a.T.contiguous(), self.br2)
 
+    @spanned("detect.stage3")
     def stage3(self, acc2: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x N^-1, homomorphic trace, to the NTT domain
         (``detector.rs:626-639``) -> (B, 2, N2)."""
@@ -228,6 +237,7 @@ class Detector:
     def _clues(self, clues: ClueBatch):
         return self._on_device(clues.a), self._on_device(clues.b7)
 
+    @spanned("detect")
     def detect(self, clues: ClueBatch, plain: bool = False) -> torch.Tensor:
         """Pertinency ciphertexts (B, 2, N2): NTT-domain RLWE cts, reference
         slot order, encrypting Delta2 * pertinency_bit in the constant slot.
@@ -348,6 +358,7 @@ class Detector:
         polys[rows, base_addr + nd] = 1  # flag slot
         return polys
 
+    @spanned("encode.index")
     def encode_pertinent_indices(
         self,
         retrieval_params: RetrievalParams,
@@ -367,7 +378,8 @@ class Detector:
         ``plain=True`` runs the plain torch NTT instead of the kernel.
         """
         pert = self._on_device(pertinency)
-        base_addr = draw_index_buckets(retrieval_params, pert.shape[0], rng)
+        with span("encode.draws"):
+            base_addr = draw_index_buckets(retrieval_params, pert.shape[0], rng)
         return self.encode_index_rows(retrieval_params, pert, base_addr, 0,
                                       chunk, plain)
 
@@ -379,22 +391,23 @@ class Detector:
         pertinency cts, ``base_addr`` their rows of
         :func:`draw_index_buckets`. The parts of disjoint row ranges add up
         (mod q2) to the digest of the whole board."""
-        rp = retrieval_params
-        pert = self._on_device(pert)
-        rows = pert.shape[0]
-        base_addr = self._on_device(base_addr)
-        idx = torch.arange(lo, lo + rows, dtype=torch.int64, device=self.device)
-        acc = torch.zeros((2, rp.polynomial_size), dtype=torch.int64,
-                          device=self.device)
-        fwd = self._fwd(plain)
-        for s in range(0, rows, chunk):
-            e = min(s + chunk, rows)
-            poly = index_poly_device(
-                base_addr[s:e], idx[s:e], rp.index_slots_per_bucket,
-                rp.polynomial_size, rp.index_modulus, self.ctx.f2.q,
-            )
-            acc = self._encode_chunk(pert[s:e], poly, acc, fwd)
-        return acc
+        with span(f"encode.rows/{self.device}"):
+            rp = retrieval_params
+            pert = self._on_device(pert)
+            rows = pert.shape[0]
+            base_addr = self._on_device(base_addr)
+            idx = torch.arange(lo, lo + rows, dtype=torch.int64, device=self.device)
+            acc = torch.zeros((2, rp.polynomial_size), dtype=torch.int64,
+                              device=self.device)
+            fwd = self._fwd(plain)
+            for s in range(0, rows, chunk):
+                e = min(s + chunk, rows)
+                poly = index_poly_device(
+                    base_addr[s:e], idx[s:e], rp.index_slots_per_bucket,
+                    rp.polynomial_size, rp.index_modulus, self.ctx.f2.q,
+                )
+                acc = self._encode_chunk(pert[s:e], poly, acc, fwd)
+            return acc
 
     def build_payload_plaintexts(
         self,
@@ -424,6 +437,7 @@ class Detector:
             )
         return polys
 
+    @spanned("encode.payload")
     def encode_pertinent_payloads(
         self,
         retrieval_params: RetrievalParams,
@@ -443,7 +457,8 @@ class Detector:
         plain torch NTT instead of the kernel.
         """
         pert = self._on_device(pertinency)
-        weights = payload_weights(retrieval_params, seed, pert.shape[0])
+        with span("encode.draws"):
+            weights = payload_weights(retrieval_params, seed, pert.shape[0])
         return self.encode_payload_rows(retrieval_params, pert, payloads,
                                         weights, chunk, plain)
 
@@ -456,24 +471,25 @@ class Detector:
         payloads and columns of :func:`payload_weights` (numpy arrays or
         tensors). The parts of disjoint row ranges add up (mod q2) to the
         whole board's digests."""
-        rp = retrieval_params
-        pert = self._on_device(pert)
-        rows = pert.shape[0]
-        weights = self._on_device(weights)
-        pay = self._on_device(payloads)
-        kct = rp.cmb_cipher_count
-        accs = torch.zeros((kct, 2, rp.polynomial_size), dtype=torch.int64,
-                           device=self.device)
-        fwd = self._fwd(plain)
-        for s in range(0, rows, chunk):
-            e = min(s + chunk, rows)
-            for k in range(kct):
-                poly = payload_plain_device(
-                    pay[s:e], weights[k, :, s:e], rp.polynomial_size,
-                    rp.index_modulus, self.ctx.f2.q,
-                )
-                accs[k] = self._encode_chunk(pert[s:e], poly, accs[k], fwd)
-        return accs
+        with span(f"encode.rows/{self.device}"):
+            rp = retrieval_params
+            pert = self._on_device(pert)
+            rows = pert.shape[0]
+            weights = self._on_device(weights)
+            pay = self._on_device(payloads)
+            kct = rp.cmb_cipher_count
+            accs = torch.zeros((kct, 2, rp.polynomial_size), dtype=torch.int64,
+                               device=self.device)
+            fwd = self._fwd(plain)
+            for s in range(0, rows, chunk):
+                e = min(s + chunk, rows)
+                for k in range(kct):
+                    poly = payload_plain_device(
+                        pay[s:e], weights[k, :, s:e], rp.polynomial_size,
+                        rp.index_modulus, self.ctx.f2.q,
+                    )
+                    accs[k] = self._encode_chunk(pert[s:e], poly, accs[k], fwd)
+            return accs
 
 
 def _warm_status(det: Detector) -> dict:

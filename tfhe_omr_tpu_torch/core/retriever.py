@@ -13,6 +13,10 @@ PyTorch-package counterpart of :mod:`tfhe_omr_tpu.core.retriever`
   decodes, the weight matrix regenerated from the shared seed, the combined
   payloads decrypted and the k x k system solved mod p (native library).
 * ``noise_sigma_info`` (``:390-560``): decoded-noise telemetry.
+
+The decode's steps run inside the profiler spans of
+:mod:`tfhe_omr_tpu_torch.utils.spans`: ``decode``, ``decode.decrypt``,
+``decode.round``, ``decode.scan``, ``decode.weights``, ``decode.solve``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from tfhe_omr_tpu_torch.core.errors import IndexDecodeError
 from tfhe_omr_tpu_torch.core.matrix import solve_matrix
 from tfhe_omr_tpu_torch.core.params import RetrievalParams
 from tfhe_omr_tpu_torch.native import get_lib, scan_buckets_native
+from tfhe_omr_tpu_torch.utils.spans import span, spanned
 
 
 def scan_buckets_numpy(decoded: np.ndarray, n_seg: int, sps: int, spb: int,
@@ -63,6 +68,7 @@ class Retriever:
         return self
 
     # ------------------------------------------------------------- decoding
+    @spanned("decode.decrypt")
     def decrypt(self, ct, plain: bool = False) -> np.ndarray:
         """NTT-domain cts (..., 2, N2) -> coefficient-domain phase b - a*z2
         mod q2 (numpy). Runs on the key's device; ``plain=True`` takes the
@@ -75,6 +81,7 @@ class Retriever:
         inv = ntt2.inv_last_plain if plain else ntt2.inv_last
         return inv(phase).cpu().numpy()
 
+    @spanned("decode.round")
     def _round_to_p(self, coeffs: np.ndarray) -> np.ndarray:
         """round_half_up(c * p / q) mod p, exactly (``retriever.rs:79-91``)."""
         q = self.ctx.f2.q
@@ -92,11 +99,12 @@ class Retriever:
         decoded = self._round_to_p(self.decrypt(ct))
         sps = rp.slots_per_segment
         n_seg = rp.segment_per_cipher
-        found = scan_buckets_native(
-            decoded[: n_seg * sps], n_seg, sps, rp.slots_per_bucket,
-            rp.bucket_count_per_segment, int(rp.index_modulus),
-            rp.all_payloads_count,
-        )
+        with span("decode.scan"):
+            found = scan_buckets_native(
+                decoded[: n_seg * sps], n_seg, sps, rp.slots_per_bucket,
+                rp.bucket_count_per_segment, int(rp.index_modulus),
+                rp.all_payloads_count,
+            )
         self.pertinent_indices_set.update(int(i) for i in found)
         return len(self.pertinent_indices_set) == rp.pertinent_count
 
@@ -115,6 +123,7 @@ class Retriever:
             out[i] = vals[cipher, slot * plen : (slot + 1) * plen]
         return out
 
+    @spanned("decode")
     def decode_digest(self, index_cts, combination_cts, seed):
         """Full digest decode (counterpart of ``decode_digest``,
         ``retriever.rs:188-260``). Returns (sorted indices, payloads)."""
@@ -127,10 +136,12 @@ class Retriever:
             raise IndexDecodeError(
                 f"recovered {len(indices)}/{rp.pertinent_count} indices"
             )
-        weights = sample_weights(rp, seed)[: rp.combination_count]
+        with span("decode.weights"):
+            weights = sample_weights(rp, seed)[: rp.combination_count]
         matrix = weights[:, indices]  # (combination_count, pertinent)
         combined = self.decode_combined_payloads(combination_cts)
-        payloads = solve_matrix(matrix, combined, int(rp.index_modulus))
+        with span("decode.solve"):
+            payloads = solve_matrix(matrix, combined, int(rp.index_modulus))
         return indices, payloads
 
     # ------------------------------------------------------------ telemetry

@@ -24,6 +24,11 @@ The random streams do not depend on the split: all bucket draws of an index
 digest come from one ``rng.integers`` call and the weight stream is drawn
 once (:func:`draw_index_buckets`, :func:`payload_weights`) before any
 slicing.
+
+``detect``, the encoders and the reduce run inside the profiler spans of
+:mod:`tfhe_omr_tpu_torch.utils.spans` (``detect``, ``encode.index``,
+``encode.payload``, ``encode.draws``, ``mesh.reduce``); each replica's rows
+inside its own ``encode.rows/<device>``.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from tfhe_omr_tpu_torch.core.detector import (
 from tfhe_omr_tpu_torch.core.sender import ClueBatch
 from tfhe_omr_tpu_torch.parallel import distributed
 from tfhe_omr_tpu_torch.utils.build import resolve_device
+from tfhe_omr_tpu_torch.utils.spans import span, spanned
 from tfhe_omr_tpu_torch.utils.timing import synchronize
 
 
@@ -147,6 +153,7 @@ class ShardedDetector:
         return RankRows([pertinency[lo:hi] for _rep, lo, hi in self._local(total)],
                         0, total)
 
+    @spanned("mesh.reduce")
     def _reduce(self, partials: list[torch.Tensor], shape) -> torch.Tensor:
         """Exact sum mod q2 of every shard's partial digest (each of
         ``shape``): int64 sums on the first local device, one all_reduce
@@ -160,6 +167,7 @@ class ShardedDetector:
         return f2.reduce(total, f2.bits + self.n_dev.bit_length() + 1)
 
     # ----------------------------------------------------------------- api
+    @spanned("detect")
     def detect(self, clues: ClueBatch, batch: int | None = None) -> RankRows:
         """Sharded batched detection: this process's rows of the pertinency
         cts (B, 2, N2) as :class:`RankRows`, one part per local shard on
@@ -242,6 +250,7 @@ class ShardedDetector:
                 rep._fwd(False)))
         return self._reduce(partials, (2, plain.shape[1]))
 
+    @spanned("encode.index")
     def encode_pertinent_indices(self, retrieval_params, pertinency, rng,
                                  chunk: int = 2048):
         """Sharded twin of ``Detector.encode_pertinent_indices``: the same
@@ -249,11 +258,13 @@ class ShardedDetector:
         :meth:`Detector.encode_index_rows`, one exact reduce."""
         rp = retrieval_params
         rr = self._rank_rows(pertinency)
-        base_addr = draw_index_buckets(rp, rr.total, rng)
+        with span("encode.draws"):
+            base_addr = draw_index_buckets(rp, rr.total, rng)
         partials = [rep.encode_index_rows(rp, part, base_addr[lo:hi], lo, chunk)
                     for (rep, lo, hi), part in zip(self._local(rr.total), rr.parts)]
         return self._reduce(partials, (2, rp.polynomial_size))
 
+    @spanned("encode.payload")
     def encode_pertinent_payloads(self, retrieval_params, pertinency, payloads,
                                   seed, chunk: int = 2048):
         """Sharded twin of ``Detector.encode_pertinent_payloads``: the
@@ -261,7 +272,8 @@ class ShardedDetector:
         through :meth:`Detector.encode_payload_rows`, one exact reduce."""
         rp = retrieval_params
         rr = self._rank_rows(pertinency)
-        weights = payload_weights(rp, seed, rr.total)
+        with span("encode.draws"):
+            weights = payload_weights(rp, seed, rr.total)
         payloads = np.asarray(payloads)
         partials = [rep.encode_payload_rows(rp, part, payloads[lo:hi],
                                             weights[:, :, lo:hi], chunk)

@@ -22,6 +22,12 @@ Phases (each prints its result; any failure exits non-zero):
      in a 50-bit one; a product that is summed with others before one
      reduction (against a key, against the monomial table) is 2 and 12
      (PRODUCT_SLOTS, from the products' SASS);
+  3b. the digest encoders' kernels (csrc/encode.cu, port-only: the JAX
+     package leaves this product to XLA) bit-equal to their plain versions
+     at a payload chunk of the reference ring (2048 rows, 28 digests, N2 =
+     2048) and at one digest of the same rows, timed, with their bounds:
+     encode_mac's bytes (every word read once) or its lazily summed
+     products (12 slots each), the builds' bytes;
   4+5. the omd oracle at the reference parameters, B = 1024 (8 pertinent
      messages, 1016 from a second key pack): key generation on the card,
      clues, Detector.warm(1024), detect through the kernels, decrypt,
@@ -38,14 +44,14 @@ Phases (each prints its result; any failure exits non-zero):
      decode. The true indices must be a subset of the decoded ones, every
      decoded payload byte-exact and every extra a confirmed protocol false
      positive; every kernel must have launched, the q2 NTT (K4) in both
-     encoders and in the decode; both digests of the first 2048 messages
+     encoders and in the decode, encode_mac in both encoders; both digests of the first 2048 messages
      must equal the plain path's (plain=True), and the Retriever's decrypt
      the plain inverse NTT's.
   8. sharded and multi-process detection at the reference parameters, with
      phase 7's keys: a ShardedDetector over every visible card, warmed on
      every card (ShardedDetector.warm), on a ragged batch (B = 1000): detect, one index digest and the payload digests
      bit-equal to the single Detector's with the same numpy streams, the
-     blind rotations, the trace and the q2 NTT launched; warm seconds per
+     blind rotations, the trace, the q2 NTT and encode_mac launched; warm seconds per
      batch of the plain and the sharded path (several detects, one
      synchronisation; order plain, sharded, sharded, plain) and the
      overhead. Then the same through a process group: one rank per visible
@@ -100,7 +106,8 @@ Phases (each prints its result; any failure exits non-zero):
      samples and to the production kernels at the hot shapes, and the split
      of a CMUX step into its stages there (benches/probe_step_torch.py).
 The line before the last is a JSON record of the kernels (``launches``:
-phases 4+5, 7 and 8 together for K1-K5, phase 9's timed runs for the probes,
+phases 4+5, 7 and 8 together for K1-K5 and the encoders' kernels, phase 9's
+timed runs for the probes,
 ``launches_by_path`` each (the ranks of phase
 8 are processes of their own: ``ranks`` is what rank 0's record counts),
 ``launches_per_detect`` one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
@@ -205,6 +212,15 @@ KERNELS = [
      "tfhe_omr_tpu/ops/pallas_fused.py:1218"),
     ("trace", "trace", "tfhe_omr_tpu_torch/csrc/trace.cu",
      "tfhe_omr_tpu/ops/pallas_fused.py:1765"),
+]
+# the digest encoders' kernels: port-only, no TPU kernel to replace
+ENCODER_KERNELS = [
+    ("encode_mac", "encode_mac", "tfhe_omr_tpu_torch/csrc/encode.cu",
+     "none: the JAX package leaves this product to XLA"),
+    ("encode_payload_plain", "encode_payload_plain", "tfhe_omr_tpu_torch/csrc/encode.cu",
+     "none: the JAX package builds the plaintexts in XLA"),
+    ("encode_index_plain", "encode_index_plain", "tfhe_omr_tpu_torch/csrc/encode.cu",
+     "none: the JAX package builds the plaintexts in XLA"),
 ]
 # the kernels every detect launches (the q1 NTT runs in keygen only)
 DETECT_KERNELS = ("ntt2", "blind_rotate1", "blind_rotate2", "trace")
@@ -397,6 +413,59 @@ def phase_compare(ctx):
     return res
 
 
+def phase_encode(ctx):
+    """Phase 3b: the encoders' kernels against their plain versions at a
+    payload chunk of the reference ring and at one digest of its rows."""
+    from tfhe_omr_tpu_torch.core.detector import draw_index_buckets, payload_weights
+    from tfhe_omr_tpu_torch.core.params import RetrievalParams
+    from tfhe_omr_tpu_torch.ops import encode
+
+    f, n, rows = ctx.f2, ctx.params.n2, ENCODE_CHUNK
+    rp = RetrievalParams.for_params(ctx.params, OMR_D, OMR_PERTINENT)
+    kct = rp.cmb_cipher_count
+    gen = torch.Generator(device=ctx.device)
+    gen.manual_seed(SEED + 30)
+    pert = random_field(gen, f, (rows, 2, n))
+    res = {}
+    for k in (1, kct):
+        pn = random_field(gen, f, (k, rows, n))
+        acc = random_field(gen, f, (k, 2, n))
+        r = compare(f"encode_mac K={k}", lambda: encode.encode_mac(f, pert, pn, acc),
+                    lambda: encode.encode_mac_plain(f, pert, pn, acc), 20, [k, rows, n])
+        r.update(ms_main_path=r["ms"], main_path_shape=[k, rows, n],
+                 **bound(nbytes(pert, pn) + 2 * nbytes(acc), 0, k * rows * 2 * n, f))
+        say(f"[main path] encode_mac {[k, rows, n]}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        res[f"encode_mac_k{k}"] = r
+        del pn, acc
+    res["encode_mac"] = dict(res[f"encode_mac_k{kct}"], one_digest=res.pop("encode_mac_k1"))
+    del res[f"encode_mac_k{kct}"]
+    args = (n, rp.index_modulus, f.q)
+    weights = torch.as_tensor(payload_weights(rp, SEED + 31, OMR_D), device=ctx.device)
+    w = weights[:, :, rows:2 * rows]
+    pay = torch.randint(0, 256, (rows, rp.payload_length), generator=gen, device=ctx.device)
+    r = compare("encode_payload_plain", lambda: encode.payload_plaintexts(pay, w, *args),
+                lambda: encode.payload_plaintexts(pay, w, *args, plain=True), 20,
+                [kct, rows, n])
+    out_bytes = kct * rows * n * 8
+    r.update(ms_main_path=r["ms"], main_path_shape=[kct, rows, n],
+             **bound(out_bytes + nbytes(pay) + kct * 2 * rows * 8, 0, 0, f))
+    res["encode_payload_plain"] = r
+    base = torch.as_tensor(draw_index_buckets(rp, OMR_D, np.random.default_rng(SEED + 32)),
+                           device=ctx.device)[rows:2 * rows].contiguous()
+    nd = rp.index_slots_per_bucket
+    r = compare("encode_index_plain", lambda: encode.index_plaintexts(base, rows, nd, *args),
+                lambda: encode.index_plaintexts(base, rows, nd, *args, plain=True), 20,
+                [rows, n])
+    r.update(ms_main_path=r["ms"], main_path_shape=[rows, n],
+             **bound(rows * n * 8 + nbytes(base), 0, 0, f))
+    res["encode_index_plain"] = r
+    for name in ("encode_payload_plain", "encode_index_plain"):
+        say(f"[main path] {name} {res[name]['main_path_shape']}: {res[name]['ms']:.4f} ms, "
+            f"bound {res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+    return res
+
+
 def phase_omr(params, gpu):
     """Phase 7; returns the kernel launches of the pipeline's run and the
     keys it made."""
@@ -432,6 +501,9 @@ def phase_omr(params, gpu):
     for stage in ("encode_indices", "encode_payloads", "decode"):
         if run.launches[stage].get("ntt2", 0) <= 0:
             raise AssertionError(f"the q2 NTT kernel did not launch in {stage}")
+    for stage in ("encode_indices", "encode_payloads"):
+        if run.launches[stage].get("encode_mac", 0) <= 0:
+            raise AssertionError(f"encode_mac did not launch in {stage}")
 
     q2 = params.q2
     digests = [*run.index_cts, run.payload_cts]
@@ -501,7 +573,7 @@ def phase_sharded(keys, gpu):
     idx_s, pay_s = digests(sharded, pv_s)
     sharded.synchronize()
     launches = dict(build.LAUNCHES)
-    missing = [c for c in ("blind_rotate1", "blind_rotate2", "trace", "ntt2")
+    missing = [c for c in ("blind_rotate1", "blind_rotate2", "trace", "ntt2", "encode_mac")
                if launches.get(c, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the sharded path: {missing}")
@@ -995,6 +1067,8 @@ def main() -> int:
         raise AssertionError(f"the default device is {ctx.device}, not the card")
     results = phase_compare(ctx)
     torch.cuda.empty_cache()
+    encode_results = phase_encode(ctx)
+    torch.cuda.empty_cache()
 
     build.reset_launches()
     run = run_omd(params, batch=BATCH, pertinent=PERTINENT, seed=SEED)
@@ -1100,6 +1174,22 @@ def main() -> int:
                 "clock_max_sm_mhz": p["clock_max_sm_mhz"], "stages": p["stages"],
                 "per_pass": {k: p["per_pass"][k] for k in (
                     "profiled_ms", "stamp_cost_pct", "stages")}}
+    for counter, jname, source, replaces in ENCODER_KERNELS:
+        r = encode_results[jname]
+        by_path = {"omr": omr_launches.get(counter, 0),
+                   "sharded": sharded_launches.get(counter, 0),
+                   "ranks": ranks_launches.get(counter, 0)}
+        kernels.append({
+            "name": jname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_per_detect": 0,
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "ms_main_path",
+                                 "main_path_shape", "bound_ms", "bound_by", "bound_unit",
+                                 "bound_bytes", "bound_products", "library_ms")},
+            **({"one_digest": {k: r["one_digest"][k] for k in (
+                "ms", "plain_ms", "main_path_shape", "bound_ms", "bound_by")}}
+               if "one_digest" in r else {}),
+        })
     for counter, jname, source, replaces in PROBE_KERNELS:
         r = probe_results[jname]
         kernels.append({

@@ -15,7 +15,7 @@ With ``--digest`` it profiles the digest side instead: one warm
 ``encode_pertinent_payloads`` and one warm ``encode_pertinent_indices`` over
 a board of D = 8192 pertinency ciphertexts (random residues: the encoders'
 work does not depend on the values), with the encoders' steps (plaintext
-build, the q2 NTT kernel, the int64 multiply, ``mod_sum``) wrapped in
+build, the q2 NTT kernel, ``encode_mac``: ``ops/encode.py``) wrapped in
 profiler ranges, so the device time divides between them and idle.
 
 Usage (needs a CUDA card; builds the kernels at the first launch):
@@ -67,7 +67,7 @@ def profile_digest() -> int:
 
     params = OmrParameters.default()
     det = make_keys(params, SEED).detector
-    f2, ntt2 = det.ctx.f2, det.ctx.ntt2
+    ntt2 = det.ctx.ntt2
     rp = RetrievalParams.for_params(params, DIGEST_D, DIGEST_PERTINENT)
     gen = torch.Generator(device=det.device).manual_seed(SEED)
     pert = torch.randint(0, params.q2, (DIGEST_D, 2, params.n2), generator=gen,
@@ -83,13 +83,11 @@ def profile_digest() -> int:
         setattr(owner, name, wrapped)
 
     steps = [STEP + name for name in ("plaintext build", "K4 forward NTT",
-                                      "int64 multiply", "mod_sum", "add")]
-    ranged(detector_mod, "payload_plain_device", steps[0])
-    ranged(detector_mod, "index_poly_device", steps[0])
+                                      "encode_mac")]
+    ranged(detector_mod, "payload_plaintexts", steps[0])
+    ranged(detector_mod, "index_plaintexts", steps[0])
     ranged(ntt2, "fwd_last", steps[1])
-    ranged(f2, "mul", steps[2])
-    ranged(f2, "mod_sum", steps[3])
-    ranged(f2, "add", steps[4])
+    ranged(detector_mod, "encode_mac", steps[2])
 
     encoders = (
         ("encode_pertinent_payloads",
@@ -110,10 +108,10 @@ def profile_digest() -> int:
               f"{wall_ms:.3f} ms, summed device kernel time {kernel_ms:.3f} ms, idle "
               f"share {1 - kernel_ms / wall_ms:.4f}")
         # a range's device time is that of the kernels launched inside it
-        # through torch; the NTT kernel is launched through ctypes and shows
-        # under its own name
+        # through torch; the kernels are launched through ctypes and show
+        # under their own names
         for e in prof.key_averages():
-            if e.key in steps or "ntt_kernel" in e.key:
+            if e.key in steps or "ntt_kernel" in e.key or "encode_" in e.key:
                 print(f"{e.device_time_total / 1e3:12.3f} ms  x{e.count:5d}  {e.key[:60]} "
                       f"({100 * e.device_time_total / 1e3 / kernel_ms:.1f} % of device time)")
         print_top(prof, 30)

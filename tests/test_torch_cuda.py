@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from tfhe_omr_tpu_torch.core.context import OmrContext
+from tfhe_omr_tpu_torch.core.detector import draw_index_buckets, payload_weights
 from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
 from tfhe_omr_tpu_torch.core.params import LweParams, OmrParameters, RetrievalParams
 from tfhe_omr_tpu_torch.core.payload import random_payloads
 from tfhe_omr_tpu_torch.core.sender import ClueBatch
+from tfhe_omr_tpu_torch.ops import encode
 from tfhe_omr_tpu_torch.ops.bootstrap import init_accumulator
 from tfhe_omr_tpu_torch.ops.fused import (
     BlindRotateKey,
@@ -253,8 +255,10 @@ def test_default_ring_detect_kernels_match_plain(cuda):
 @pytest.mark.parametrize("preset,total,chunk", [("tiny", 40, 16),
                                                 ("default", 300, 128)])
 def test_encoders_kernel_match_plain(cuda, preset, total, chunk):
-    """Both digest encoders through the q2 NTT kernel equal plain=True on a
-    random pertinency stack on the card (a ragged tail included)."""
+    """Both digest encoders through their kernels (plaintext build, the q2
+    NTT, encode_mac: one launch of each a chunk, whatever the number of
+    digests) equal plain=True on a random pertinency stack on the card (a
+    ragged tail included)."""
     params = getattr(OmrParameters, preset)()
     ctx = OmrContext(params, cuda)
     detector = SecretKeyPack(params, rng=3, ctx=ctx).generate_detector()
@@ -262,16 +266,47 @@ def test_encoders_kernel_match_plain(cuda, preset, total, chunk):
     gen = torch.Generator(device=cuda).manual_seed(4)
     pert = _uniform(gen, params.q2, (total, 2, params.n2))
     payloads = random_payloads(np.random.default_rng(5), total, rp.payload_length)
-    before = build.LAUNCHES["ntt2"]
+    n_chunks = -(-total // chunk)
+    names = ("ntt2", "encode_mac", "encode_index_plain", "encode_payload_plain")
+    before = {c: build.LAUNCHES[c] for c in names}
     idx = detector.encode_pertinent_indices(rp, pert, np.random.default_rng(6),
                                             chunk=chunk)
+    assert [build.LAUNCHES[c] - before[c] for c in names] == [n_chunks] * 3 + [0]
     pay = detector.encode_pertinent_payloads(rp, pert, payloads, 7, chunk=chunk)
-    n_chunks = -(-total // chunk)
-    assert build.LAUNCHES["ntt2"] == before + n_chunks * (1 + rp.cmb_cipher_count)
+    assert [build.LAUNCHES[c] - before[c] for c in names] == [2 * n_chunks] * 2 + [n_chunks] * 2
     assert torch.equal(idx, detector.encode_pertinent_indices(
         rp, pert, np.random.default_rng(6), chunk=chunk, plain=True))
     assert torch.equal(pay, detector.encode_pertinent_payloads(
         rp, pert, payloads, 7, chunk=chunk, plain=True))
+
+
+def test_encode_kernels_match_plain_at_the_main_path_shape(cuda):
+    """A payload chunk of the reference ring, 2048 rows of 28 digests at N2
+    = 2048, and an index chunk (one digest) of the same rows: encode_mac
+    and both plaintext builds equal their plain versions."""
+    ctx = _ctx("default", cuda)
+    f, n, rows = ctx.f2, ctx.params.n2, 2048
+    rp = RetrievalParams.for_params(ctx.params, 4096, 50)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    pert = _uniform(gen, f.q, (rows, 2, n))
+    for kct in (rp.cmb_cipher_count, 1):
+        pn = _uniform(gen, f.q, (kct, rows, n))
+        acc = _uniform(gen, f.q, (kct, 2, n))
+        before = build.LAUNCHES["encode_mac"]
+        got = encode.encode_mac(f, pert, pn, acc)
+        assert build.LAUNCHES["encode_mac"] == before + 1
+        assert torch.equal(got, encode.encode_mac_plain(f, pert, pn, acc)), kct
+        del pn
+    args = (rp.polynomial_size, rp.index_modulus, f.q)
+    weights = torch.as_tensor(payload_weights(rp, 13, 4096), device=cuda)[:, :, rows:]
+    payloads = torch.randint(0, 256, (rows, rp.payload_length), generator=gen, device=cuda)
+    assert torch.equal(encode.payload_plaintexts(payloads, weights, *args),
+                       encode.payload_plaintexts(payloads, weights, *args, plain=True))
+    base = torch.as_tensor(draw_index_buckets(rp, 4096, np.random.default_rng(14)),
+                           device=cuda)[rows:].contiguous()
+    nd = rp.index_slots_per_bucket
+    assert torch.equal(encode.index_plaintexts(base, rows, nd, *args),
+                       encode.index_plaintexts(base, rows, nd, *args, plain=True))
 
 
 def test_retriever_decrypt_kernel_matches_plain(cuda):

@@ -33,11 +33,7 @@ from tfhe_omr_tpu.core.params import LweParams as JaxLwe
 from tfhe_omr_tpu.core.params import OmrParameters as JaxParams
 from tfhe_omr_tpu.core.params import RetrievalParams as JaxRetrievalParams
 from tfhe_omr_tpu_torch.core.context import OmrContext
-from tfhe_omr_tpu_torch.core.detector import (
-    index_poly_device,
-    payload_plain_device,
-    sample_weights,
-)
+from tfhe_omr_tpu_torch.core.detector import Detector, sample_weights
 from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
 from tfhe_omr_tpu_torch.core.params import (
     KeySwitchParams,
@@ -46,6 +42,7 @@ from tfhe_omr_tpu_torch.core.params import (
     RetrievalParams,
 )
 from tfhe_omr_tpu_torch.core.payload import random_payloads
+from tfhe_omr_tpu_torch.ops.encode import index_poly_device, payload_plain_device
 
 # The suite runs in several xdist workers on one host: one torch thread each
 # keeps their CPU thread pools from oversubscribing its cores.
@@ -171,7 +168,8 @@ def test_device_builders_match_host_builders(detectors):
     for s in range(0, count, chunk):
         c = min(chunk, count - s)
         plain = port.build_index_plaintexts(rp, c, rng_b, start_index=s)
-        acc = port._encode_chunk(pert[s:s + c], torch.as_tensor(plain), acc, fwd)
+        acc = port._encode_chunk(pert[s:s + c], torch.as_tensor(plain)[None],
+                                 acc[None], fwd)[0]
     assert torch.equal(digest, acc)
 
     payloads = random_payloads(rng, count, rp.payload_length)
@@ -179,17 +177,45 @@ def test_device_builders_match_host_builders(detectors):
     digests = port.encode_pertinent_payloads(rp, pert, payloads, seed, chunk=chunk)
     w_all = sample_weights(rp, seed).reshape(
         rp.cmb_cipher_count, rp.cmb_count_per_cipher, -1)
+    dev = payload_plain_device(torch.as_tensor(payloads), torch.as_tensor(w_all),
+                               rp.polynomial_size, rp.index_modulus, q2)
+    assert dev.shape == (rp.cmb_cipher_count, count, rp.polynomial_size)
     for k in range(rp.cmb_cipher_count):
         host = port.build_payload_plaintexts(rp, payloads, w_all[k])
-        dev = payload_plain_device(torch.as_tensor(payloads),
-                                   torch.as_tensor(w_all[k]), rp.polynomial_size,
-                                   rp.index_modulus, q2)
-        assert np.array_equal(dev.numpy(), host), k
+        assert np.array_equal(dev[k].numpy(), host), k
         acc = torch.zeros_like(digests[k])
         for s in range(0, count, chunk):
             plain = torch.as_tensor(host[s:s + chunk])
-            acc = port._encode_chunk(pert[s:s + chunk], plain, acc, fwd)
+            acc = port._encode_chunk(pert[s:s + chunk], plain[None], acc[None], fwd)[0]
         assert torch.equal(digests[k], acc), k
+    # every digest of a chunk at once: the same sums
+    acc = torch.zeros_like(digests)
+    for s in range(0, count, chunk):
+        acc = port._encode_chunk(pert[s:s + chunk], dev[:, s:s + chunk], acc, fwd)
+    assert torch.equal(digests, acc)
+
+
+def test_every_chunk_passes_through_encode_chunk(detectors, monkeypatch):
+    """With ``Detector._encode_chunk`` returning its ``acc`` unchanged both
+    encoders give all-zero digests: no digest word is summed anywhere
+    else (the seam a benchmark control breaks)."""
+    _preset, port, _jax_det = detectors
+    params = port.ctx.params
+    count, chunk = 24, 16
+    rp = RetrievalParams.for_params(params, count, 4)
+    rng = np.random.default_rng(23)
+    pert = torch.as_tensor(
+        rng.integers(0, params.q2, size=(count, 2, params.n2), dtype=np.int64))
+    payloads = random_payloads(rng, count, rp.payload_length)
+    idx = port.encode_pertinent_indices(rp, pert, np.random.default_rng(8), chunk=chunk)
+    pay = port.encode_pertinent_payloads(rp, pert, payloads, 9, chunk=chunk)
+    assert bool(idx.any()) and bool(pay.any())
+    monkeypatch.setattr(Detector, "_encode_chunk",
+                        lambda self, pert, plain, acc, fwd: acc)
+    idx = port.encode_pertinent_indices(rp, pert, np.random.default_rng(8), chunk=chunk)
+    pay = port.encode_pertinent_payloads(rp, pert, payloads, 9, chunk=chunk)
+    assert idx.shape == (2, params.n2) and not bool(idx.any())
+    assert pay.shape == (rp.cmb_cipher_count, 2, params.n2) and not bool(pay.any())
 
 
 @pytest.mark.parametrize("preset", ["tiny", "default"])

@@ -18,8 +18,11 @@ import pytest
 import torch
 
 from tfhe_omr_tpu_torch.core.context import OmrContext
-from tfhe_omr_tpu_torch.core.params import OmrParameters
-from tfhe_omr_tpu_torch.ops import fused
+from tfhe_omr_tpu_torch.core.detector import draw_index_buckets, payload_weights
+from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack
+from tfhe_omr_tpu_torch.core.payload import random_payloads
+from tfhe_omr_tpu_torch.core.params import OmrParameters, RetrievalParams
+from tfhe_omr_tpu_torch.ops import encode, fused
 from tfhe_omr_tpu_torch.ops.bootstrap import init_accumulator
 from tfhe_omr_tpu_torch.ops.ntt import Ntt
 from tfhe_omr_tpu_torch.utils import build
@@ -115,7 +118,107 @@ def test_blind_rotate_kernel_on_host_matches_plain(host, preset, level, m):
                        fused.blind_rotate_plain(acc, amounts, key))
 
 
-@pytest.mark.parametrize("kernel", ["blind_rotate", "trace", "ntt"])
+# the board whose digest layout the encoders' tests take: 28 payload digests
+ENCODE_BOARD = (4096, 50)
+
+
+@pytest.mark.parametrize("digests", ["one", "all"])
+@pytest.mark.parametrize("rows", [1, 2, 37])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_encode_mac_on_host_matches_plain(host, preset, rows, digests):
+    """All K digests of a chunk in one launch: K = 1 (an index digest, its
+    rows split over the block's lanes) and the preset's 28 payload digests
+    (14 groups of two), with residues at both ends of the field."""
+    ctx = _ctx(preset)
+    f, n = ctx.f2, ctx.params.n2
+    rp = RetrievalParams.for_params(ctx.params, *ENCODE_BOARD)
+    kct = 1 if digests == "one" else rp.cmb_cipher_count
+    gen = torch.Generator().manual_seed(40 + rows)
+    pert = _uniform(gen, f.q, (rows, 2, n))
+    pn = _uniform(gen, f.q, (kct, rows, n))
+    acc = _uniform(gen, f.q, (kct, 2, n))
+    pert[:, :, :2] = f.q - 1
+    pn[:, :, :2] = f.q - 1
+    acc[:, 0, 0] = f.q - 1
+    pert[0, :, 2] = 0
+    got = encode.encode_mac(f, pert, pn, acc)
+    assert build.LAUNCHES["encode_mac"] == 1
+    assert torch.equal(got, encode.encode_mac_plain(f, pert, pn, acc))
+    if preset == "tiny":  # no rows: the digests pass through
+        assert torch.equal(acc, encode.encode_mac(f, pert[:0], pn[:, :0], acc))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 37])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_plaintext_builds_on_host_match_plain(host, preset, rows):
+    """The payload plaintexts of one digest and of every digest of a chunk,
+    read from a column slice of the board's weights, and the index
+    plaintexts of drawn buckets and of the warm's all-zero ones (every
+    segment on the same slots), from a row past the board's first."""
+    ctx = _ctx(preset)
+    p = ctx.params
+    rp = RetrievalParams.for_params(p, *ENCODE_BOARD)
+    lo = 3
+    args = (rp.polynomial_size, rp.index_modulus, p.q2)
+    weights = torch.as_tensor(payload_weights(rp, 77, ENCODE_BOARD[0]))
+    payloads = torch.randint(0, 256, (rows, rp.payload_length),
+                             generator=torch.Generator().manual_seed(rows))
+    for kct in (1, rp.cmb_cipher_count):
+        w = weights[:kct, :, lo:lo + rows]
+        got = encode.payload_plaintexts(payloads, w, *args)
+        assert got.shape == (kct, rows, rp.polynomial_size)
+        assert torch.equal(got, encode.payload_plain_device(payloads, w, *args))
+    assert build.LAUNCHES["encode_payload_plain"] == 2
+    drawn = torch.as_tensor(draw_index_buckets(rp, ENCODE_BOARD[0],
+                                               np.random.default_rng(rows)))
+    for base in (drawn[lo:lo + rows].contiguous(),
+                 torch.zeros((rows, rp.segment_per_cipher), dtype=torch.int64)):
+        got = encode.index_plaintexts(base, lo, rp.index_slots_per_bucket, *args)
+        assert torch.equal(got, encode.index_plaintexts(
+            base, lo, rp.index_slots_per_bucket, *args, plain=True))
+    assert build.LAUNCHES["encode_index_plain"] == 2
+
+
+@pytest.fixture(scope="module")
+def tiny_detector():
+    """A tiny-preset detector made on the CPU before any routing (its keys
+    in the plain layout; the encoders read none of them)."""
+    params = OmrParameters.tiny()
+    return SecretKeyPack(params, rng=5, ctx=OmrContext(params, "cpu")).generate_detector()
+
+
+def test_encoders_on_host_match_plain(host, tiny_detector):
+    """Both encoders through the build, K4 and encode_mac of the host
+    build equal plain=True, on a ragged board of 24 in chunks of 16: one
+    launch of each a chunk, whatever the number of digests."""
+    det = tiny_detector
+    total, chunk = 24, 16
+    rp = RetrievalParams.for_params(det.ctx.params, total, 8)
+    rng = np.random.default_rng(41)
+    pert = torch.as_tensor(
+        rng.integers(0, det.ctx.f2.q, size=(total, 2, det.ctx.params.n2), dtype=np.int64))
+    payloads = random_payloads(rng, total, rp.payload_length)
+    idx = det.encode_pertinent_indices(rp, pert, np.random.default_rng(6), chunk=chunk)
+    pay = det.encode_pertinent_payloads(rp, pert, payloads, 7, chunk=chunk)
+    chunks = -(-total // chunk)
+    assert build.LAUNCHES["encode_mac"] == 2 * chunks
+    assert build.LAUNCHES["ntt2"] == 2 * chunks
+    assert build.LAUNCHES["encode_index_plain"] == build.LAUNCHES["encode_payload_plain"] == chunks
+    # the chunk's rows and their NTT images lie in two buffers the detector
+    # holds, sized by the payload chunk and kept for what follows
+    held = [t.data_ptr() for t in det._chunk_words]
+    assert det._chunk_words[0].numel() >= rp.cmb_cipher_count * chunk * det.ctx.params.n2
+    assert torch.equal(idx, det.encode_pertinent_indices(rp, pert, np.random.default_rng(6),
+                                                         chunk=chunk))
+    assert [t.data_ptr() for t in det._chunk_words] == held
+    assert torch.equal(idx, det.encode_pertinent_indices(
+        rp, pert, np.random.default_rng(6), chunk=chunk, plain=True))
+    assert torch.equal(pay, det.encode_pertinent_payloads(
+        rp, pert, payloads, 7, chunk=chunk, plain=True))
+    assert build.LAUNCHES["encode_mac"] == 3 * chunks
+
+
+@pytest.mark.parametrize("kernel", ["blind_rotate", "trace", "ntt", "encode_mac"])
 def test_no_instantiation_for_other_parameters_raises(host, kernel):
     """The library is the only table of instantiations; a ring it does not
     have raises, naming the parameters."""
@@ -127,9 +230,13 @@ def test_no_instantiation_for_other_parameters_raises(host, kernel):
     elif kernel == "trace":
         with pytest.raises(ValueError, match=r"no trace kernel.*\(7, "):
             fused.tr_layout(other, ctx.gadget_trace)
-    else:
+    elif kernel == "ntt":
         with pytest.raises(ValueError, match=r"no NTT kernel.*\(7, "):
             other.fwd_last(torch.zeros((2, 128), dtype=torch.int64))
+    else:  # the q1 field: encode_mac has the q2 fields alone
+        zero = torch.zeros((1, 2, 128), dtype=torch.int64)
+        with pytest.raises(ValueError, match=rf"no encode_mac kernel.*q = {ctx.f1.q}"):
+            encode.encode_mac(ctx.f1, zero, zero[:, :1], zero)
 
 
 @pytest.mark.parametrize("m", [1, 5])

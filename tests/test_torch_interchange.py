@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from tfhe_omr_tpu_torch.core.context import OmrContext
-from tfhe_omr_tpu_torch.core.detector import index_poly_device
+from tfhe_omr_tpu_torch.ops.encode import index_poly_device
 from tfhe_omr_tpu_torch.core.keygen import SecretKeyPack, secret_key_pack_from_numpy
 from tfhe_omr_tpu_torch.core.lut import first_level_lut, second_level_lut
 from tfhe_omr_tpu_torch.core.params import OmrParameters, RetrievalParams

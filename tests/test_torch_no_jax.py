@@ -57,7 +57,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tfhe_omr_tpu"))
 assert not bad, bad
 for name in ("core.matrix", "core.retriever", "native", "parallel",
-             "parallel.mesh", "parallel.distributed", "ops.probes", "entry",
+             "parallel.mesh", "parallel.distributed", "ops.probes", "ops.encode", "entry",
              "utils.golden"):
     assert "tfhe_omr_tpu_torch." + name in names, names
 assert len(names) >= 26, names

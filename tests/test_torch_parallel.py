@@ -141,11 +141,14 @@ def test_sharded_detect_splits_ragged_batches(tiny, n):
 def test_sharded_encode_chunk_matches_single_and_jax(tiny, n):
     det, _clues, _rp, _pay, plain, single, want = tiny
     sharded = ShardedDetector(det, make_data_mesh(["cpu"] * n))
-    zero = torch.zeros((2, single.shape[2]), dtype=torch.int64)
-    one = det._encode_chunk(single, torch.as_tensor(plain), zero, det._fwd(False))
-    got = sharded.encode_chunk(single, plain)
+    zero = torch.zeros((2, 2, single.shape[2]), dtype=torch.int64)
+    # two digests at once: the JAX chunk's plaintexts and the same reversed
+    polys = torch.stack([torch.as_tensor(plain), torch.as_tensor(plain).flip(0)])
+    one = det._encode_chunk(single, polys, zero, det._fwd(False))
+    got = sharded.encode_chunk(single, polys)
     assert torch.equal(got, one)
-    np.testing.assert_array_equal(got.numpy(), want["chunk"])
+    np.testing.assert_array_equal(got[0].numpy(), want["chunk"])
+    assert torch.equal(got[1], sharded.encode_chunk(single.flip(0), polys[:1])[0])
 
 
 @pytest.mark.parametrize("n", SHARDS)

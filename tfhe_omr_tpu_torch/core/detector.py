@@ -18,11 +18,14 @@ kernels are held against them on the card.
 The digest encoders (``encode_pertinent_indices`` /
 ``encode_pertinent_payloads``, reference ``detector.rs:223-453``) read the
 ``(D, 2, N2)`` pertinency stack where it lies, on the detector's device, in
-chunks of messages: per chunk the plaintext polynomials are built on the
-device, taken to the NTT domain (the q2 NTT kernel on a card), multiplied
-into the pertinency ciphertexts and summed over the messages mod q2. The
-JAX package's ``lax.scan`` over whole chunks plus a ragged-tail call is
-one Python loop here.
+chunks of messages: per chunk the plaintext polynomials of every digest the
+call encodes (one index digest, or all payload digests) are built on the
+device, taken to the NTT domain, multiplied into the pertinency ciphertexts
+and summed over the messages mod q2; on a card that is three launches a
+chunk whatever the number of digests (:mod:`tfhe_omr_tpu_torch.ops.encode`:
+the build, the q2 NTT kernel, ``encode_mac``). The JAX package's
+``lax.scan`` over whole chunks plus a ragged-tail call is one Python loop
+here.
 
 ``detect``, its three stages, both encoders, their draws and each device's
 rows run inside the profiler spans of :mod:`tfhe_omr_tpu_torch.utils.spans`
@@ -48,6 +51,11 @@ from tfhe_omr_tpu_torch.ops.bootstrap import (
     lwe_modulus_switch,
     make_lwe_keyswitch,
 )
+from tfhe_omr_tpu_torch.ops.encode import (
+    encode_mac,
+    index_plaintexts,
+    payload_plaintexts,
+)
 from tfhe_omr_tpu_torch.ops.fused import (
     BlindRotateKey,
     TraceKey,
@@ -60,49 +68,6 @@ from tfhe_omr_tpu_torch.utils import build
 from tfhe_omr_tpu_torch.utils.build import resolve_device
 from tfhe_omr_tpu_torch.utils.spans import span, spanned
 from tfhe_omr_tpu_torch.utils.timing import StageTimer, synchronize
-
-
-def _centre(v: torch.Tensor, idx_p: int, q2: int) -> torch.Tensor:
-    """Residues mod p in [0, p) -> centred representatives mod q2."""
-    return torch.where(v < (idx_p + 1) >> 1, v, q2 - idx_p + v)
-
-
-def index_poly_device(base_addr: torch.Tensor, idx: torch.Tensor, nd: int,
-                      n2v: int, idx_p: int, q2: int) -> torch.Tensor:
-    """Index plaintext polys (B, N2), centred mod q, on ``idx``'s device.
-
-    For each message: write the ``nd`` base-p digits of ``idx`` (LSB first)
-    and a flag 1 into the drawn bucket's slots of every segment
-    (``base_addr`` (B, segs) holds each bucket's first slot; counterpart
-    of ``detector.rs:271-323``). The slots of one message never collide,
-    so a scatter gives the integers of the JAX package's one-hot slot sums.
-    """
-    poly = torch.zeros((idx.shape[0], n2v), dtype=torch.int64, device=idx.device)
-    segs = base_addr.shape[1]
-    v = idx
-    for k in range(nd + 1):
-        if k < nd:
-            val = _centre(v % idx_p, idx_p, q2)
-            v = v // idx_p
-        else:
-            val = torch.ones_like(idx)  # flag slot
-        poly.scatter_(1, base_addr + k, val[:, None].expand(-1, segs))
-    return poly
-
-
-def payload_plain_device(payloads: torch.Tensor, weights_k: torch.Tensor,
-                         n2v: int, idx_p: int, q2: int) -> torch.Tensor:
-    """Weighted-payload plaintext polys (B, N2), centred mod q, for ONE
-    combination ciphertext: combination c fills slots
-    [c*plen, (c+1)*plen) (``detector.rs:412-433``). payloads (B, plen),
-    weights_k (cmb, B)."""
-    cmb = weights_k.shape[0]
-    bsz, plen = payloads.shape
-    wp = (payloads[None, :, :] * weights_k[:, :, None]) % idx_p  # (cmb, B, plen)
-    poly = torch.zeros((bsz, n2v), dtype=torch.int64, device=payloads.device)
-    poly[:, : cmb * plen] = _centre(wp, idx_p, q2).permute(1, 0, 2).reshape(
-        bsz, cmb * plen)
-    return poly
 
 
 @dataclass
@@ -167,6 +132,7 @@ class Detector:
         self.ex_neg = dev(ex_neg).bool()
         self.n2_inv = ctx.f2.inv(p.n2)
         self.n2_inv_sh = int(ctx.f2.shoup(self.n2_inv))
+        self._chunk_words = None  # the encoders' buffers (_chunk_buffers)
 
     def to(self, device) -> "Detector":
         """A replica of this detector on another device of the same kind
@@ -302,17 +268,46 @@ class Detector:
     # ------------------------------------------------------- digest encoder
     def _encode_chunk(self, pert: torch.Tensor, plain: torch.Tensor,
                       acc: torch.Tensor, fwd) -> torch.Tensor:
-        """acc + sum over the chunk's messages of pert * NTT(plain), mod q2.
-        pert (B, 2, N2) NTT-domain pertinency cts; plain (B, N2) plaintext
-        polys; acc (2, N2). Counterpart of ``encode_chunk``
+        """acc + sum over the chunk's messages of pert * NTT(plain), mod q2,
+        for every digest of the chunk: pert (B, 2, N2) NTT-domain pertinency
+        cts; plain (K, B, N2) the plaintext polys of K digests; acc (K, 2,
+        N2). ``fwd`` is the forward NTT of :meth:`_fwd`: with its plain
+        version the multiply-accumulate runs plain too. Every chunk of both
+        encoders passes through here. Counterpart of ``encode_chunk``
         (``detector.rs:256-337``)."""
-        f2 = self.ctx.f2
-        pn = fwd(plain)  # (B, N2)
-        return f2.add(acc, f2.mod_sum(f2.mul(pert, pn[:, None, :]), dim=0))
+        return encode_mac(self.ctx.f2, pert, fwd(plain), acc,
+                          plain=fwd == self.ctx.ntt2.fwd_last_plain)
 
     def _fwd(self, plain: bool):
-        ntt2 = self.ctx.ntt2
-        return ntt2.fwd_last_plain if plain else ntt2.fwd_last
+        return self.ctx.ntt2.fwd_last_plain if plain else self._fwd_held
+
+    def _chunk_buffers(self, words: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Two int64 buffers of at least ``words`` on the detector's card,
+        for a chunk's plaintext rows and their NTT images (940 MB each at
+        2048 rows of 28 digests). They are held from chunk to chunk and
+        board to board, grown to the largest chunk asked for: were they
+        freed, the allocator would hand their room to other tensors of a
+        board and allocate them anew every board (cudaMalloc on the host's
+        clock)."""
+        if self._chunk_words is None or self._chunk_words[0].numel() < words:
+            self._chunk_words = None  # the smaller pair goes before the larger comes
+            self._chunk_words = tuple(torch.empty(words, dtype=torch.int64, device=self.device)
+                                      for _ in range(2))
+        return self._chunk_words
+
+    def _fwd_held(self, x: torch.Tensor) -> torch.Tensor:
+        """The q2 forward NTT of a chunk's plaintext rows, on a card into
+        the second of :meth:`_chunk_buffers`."""
+        if build.device_kind(x) == "cpu":
+            return self.ctx.ntt2.fwd_last(x)
+        return self.ctx.ntt2.fwd_last(x, out=self._chunk_buffers(x.numel())[1][:x.numel()])
+
+    def _plain_buffer(self, words: int, plain: bool, like: torch.Tensor):
+        """Where a chunk's plaintext rows are built: the first of
+        :meth:`_chunk_buffers` on the kernel path on a card, else anew."""
+        if plain or build.device_kind(like) == "cpu":
+            return None
+        return self._chunk_buffers(words)[0]
 
     def build_index_plaintexts(
         self,
@@ -322,7 +317,8 @@ class Detector:
         start_index: int = 0,
     ) -> np.ndarray:
         """Host: per-message index plaintext polys (count, N2), centred mod q
-        (the host twin of :func:`index_poly_device`, same bucket draws).
+        (the host twin of :func:`~tfhe_omr_tpu_torch.ops.encode.index_poly_device`,
+        same bucket draws).
 
         For each message and each segment in the ciphertext: pick a random
         bucket, write the base-p digits of the message index (LSB first) into
@@ -393,21 +389,20 @@ class Detector:
         (mod q2) to the digest of the whole board."""
         with span(f"encode.rows/{self.device}"):
             rp = retrieval_params
-            pert = self._on_device(pert)
+            pert = self._on_device(pert).contiguous()
             rows = pert.shape[0]
-            base_addr = self._on_device(base_addr)
-            idx = torch.arange(lo, lo + rows, dtype=torch.int64, device=self.device)
-            acc = torch.zeros((2, rp.polynomial_size), dtype=torch.int64,
+            base_addr = self._on_device(base_addr).contiguous()
+            acc = torch.zeros((1, 2, rp.polynomial_size), dtype=torch.int64,
                               device=self.device)
             fwd = self._fwd(plain)
             for s in range(0, rows, chunk):
                 e = min(s + chunk, rows)
-                poly = index_poly_device(
-                    base_addr[s:e], idx[s:e], rp.index_slots_per_bucket,
-                    rp.polynomial_size, rp.index_modulus, self.ctx.f2.q,
-                )
-                acc = self._encode_chunk(pert[s:e], poly, acc, fwd)
-            return acc
+                poly = index_plaintexts(
+                    base_addr[s:e], lo + s, rp.index_slots_per_bucket,
+                    rp.polynomial_size, rp.index_modulus, self.ctx.f2.q, plain,
+                    self._plain_buffer((e - s) * rp.polynomial_size, plain, pert))
+                acc = self._encode_chunk(pert[s:e], poly[None], acc, fwd)
+            return acc[0]
 
     def build_payload_plaintexts(
         self,
@@ -416,7 +411,8 @@ class Detector:
         weights: np.ndarray,
     ) -> np.ndarray:
         """Host: weighted-payload plaintext polys (B, N2), centred mod q
-        (the host twin of :func:`payload_plain_device`).
+        (the host twin of
+        :func:`~tfhe_omr_tpu_torch.ops.encode.payload_plain_device`).
 
         payloads: (B, payload_length); weights: (cmb_count_per_cipher, B).
         Slot layout: combination c occupies slots
@@ -473,22 +469,21 @@ class Detector:
         whole board's digests."""
         with span(f"encode.rows/{self.device}"):
             rp = retrieval_params
-            pert = self._on_device(pert)
+            pert = self._on_device(pert).contiguous()
             rows = pert.shape[0]
             weights = self._on_device(weights)
-            pay = self._on_device(payloads)
+            pay = self._on_device(payloads).contiguous()
             kct = rp.cmb_cipher_count
             accs = torch.zeros((kct, 2, rp.polynomial_size), dtype=torch.int64,
                                device=self.device)
             fwd = self._fwd(plain)
             for s in range(0, rows, chunk):
                 e = min(s + chunk, rows)
-                for k in range(kct):
-                    poly = payload_plain_device(
-                        pay[s:e], weights[k, :, s:e], rp.polynomial_size,
-                        rp.index_modulus, self.ctx.f2.q,
-                    )
-                    accs[k] = self._encode_chunk(pert[s:e], poly, accs[k], fwd)
+                poly = payload_plaintexts(
+                    pay[s:e], weights[:, :, s:e], rp.polynomial_size,
+                    rp.index_modulus, self.ctx.f2.q, plain,
+                    self._plain_buffer(kct * (e - s) * rp.polynomial_size, plain, pert))
+                accs = self._encode_chunk(pert[s:e], poly, accs, fwd)
             return accs
 
 

@@ -377,13 +377,19 @@ class Ntt:
         sms = torch.cuda.get_device_properties(self.device).multi_processor_count
         return lay, tables, n_inv_sh, lay.blocks_per_sm * sms
 
-    def _launch(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    def _launch(self, x: torch.Tensor, inverse: bool, out=None) -> torch.Tensor:
         if x.shape[-1] != self.n:
             raise ValueError(f"expected (..., {self.n}), got {tuple(x.shape)}")
         rows = x.reshape(-1, self.n).contiguous()
         if rows.data_ptr() % 16:
             rows = rows.clone()  # the kernel moves 16 bytes at a time
-        out = torch.empty_like(rows)
+        if out is None:
+            out = torch.empty_like(rows)
+        elif (out.numel() != rows.numel() or not out.is_contiguous()
+              or out.data_ptr() % 16 or out.data_ptr() == rows.data_ptr()):
+            raise ValueError(f"{self.name}: out must be a contiguous 16-byte aligned tensor "
+                             f"of {rows.numel()} words apart from the input")
+        out = out.view(rows.shape)
         lay, tables, n_inv_sh, resident = self.row_kernel_tables
         tw, perm = tables[int(inverse)]
         build.require_cuda("ntt", rows, out)
@@ -404,13 +410,14 @@ class Ntt:
         build.LAUNCHES[self.name] += 1
         return out.reshape(x.shape)
 
-    def fwd_last(self, x: torch.Tensor) -> torch.Tensor:
+    def fwd_last(self, x: torch.Tensor, out=None) -> torch.Tensor:
         """Forward NTT along the last axis: plain torch on the CPU, the
-        ``csrc/ntt.cu`` kernel on a CUDA tensor."""
+        ``csrc/ntt.cu`` kernel on a CUDA tensor, written into ``out`` (as
+        many words as ``x``, held by the caller) where one is given."""
         kind = build.device_kind(x)
         if kind == "cpu":
             return self.fwd_last_plain(x)
-        return self._launch(x, inverse=False)
+        return self._launch(x, inverse=False, out=out)
 
     def inv_last(self, x: torch.Tensor) -> torch.Tensor:
         """Inverse NTT along the last axis (see :meth:`fwd_last`)."""

@@ -239,16 +239,19 @@ class ShardedDetector:
             synchronize(rep.device)
 
     def encode_chunk(self, pertinency, plain) -> torch.Tensor:
-        """One digest chunk, sum over the messages of pert * NTT(plain)
-        mod q2 -> (2, N2): pertinency (B, 2, N2), plaintext polys (B, N2)."""
+        """One digest chunk of K digests, sum over the messages of pert *
+        NTT(plain) mod q2 -> (K, 2, N2): pertinency (B, 2, N2), plaintext
+        polys (K, B, N2); each replica takes its rows through
+        :meth:`Detector._encode_chunk`."""
         rr = self._rank_rows(pertinency)
+        shape = (plain.shape[0], 2, plain.shape[2])
         partials = []
         for (rep, lo, hi), part in zip(self._local(rr.total), rr.parts):
-            zero = torch.zeros((2, plain.shape[1]), dtype=torch.int64, device=rep.device)
+            zero = torch.zeros(shape, dtype=torch.int64, device=rep.device)
             partials.append(rep._encode_chunk(
-                rep._on_device(part), rep._on_device(plain[lo:hi]), zero,
-                rep._fwd(False)))
-        return self._reduce(partials, (2, plain.shape[1]))
+                rep._on_device(part).contiguous(),
+                rep._on_device(plain[:, lo:hi]).contiguous(), zero, rep._fwd(False)))
+        return self._reduce(partials, shape)
 
     @spanned("encode.index")
     def encode_pertinent_indices(self, retrieval_params, pertinency, rng,

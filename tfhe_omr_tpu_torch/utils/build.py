@@ -56,6 +56,10 @@ _PROBE_CHAIN_PLAN_ARGS = [_I64, _I32, _I32, _I32, _P]
 _PROBE_MAC_ARGS = [_I32, _P, _P, _P, _I64, _I32, _P]
 _PROBE_I8DOT_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P]
 _PROBE_I8DOT_PLAN_ARGS = [_I64, _I32, _I32, _I32, _I32, _I32, _P]
+_ENCODE_MAC_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P]
+_ENCODE_PAYLOAD_ARGS = [_P, _P, _I64, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I64,
+                        _I32, _P]
+_ENCODE_INDEX_ARGS = [_P, _I64, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I32, _P]
 
 _library = None
 _host_library = None
@@ -163,6 +167,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("omr_probe_mac", _PROBE_MAC_ARGS),
         ("omr_probe_i8dot", _PROBE_I8DOT_ARGS),
         ("omr_probe_i8dot_plan", _PROBE_I8DOT_PLAN_ARGS),
+        ("omr_encode_mac", _ENCODE_MAC_ARGS),
+        ("omr_encode_mac_field", [_I64]),
+        ("omr_encode_payload_plain", _ENCODE_PAYLOAD_ARGS),
+        ("omr_encode_index_plain", _ENCODE_INDEX_ARGS),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

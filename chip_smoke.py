@@ -28,6 +28,18 @@ Phases (each prints its result; any failure exits non-zero):
      2048) and at one digest of the same rows, timed, with their bounds:
      encode_mac's bytes (every word read once) or its lazily summed
      products (12 slots each), the builds' bytes;
+  3c. the detector of many recipients at the shapes of the latency_d1_r96
+     cell: a RecipientsDetector of 96 keys at the reference parameters
+     (recipient 0's from keygen, 95 of random words), one message's clues
+     to recipient 0. One detect and both digest encoders from zeroed launch
+     counters launch K1, K2, K3 and the encoders' three kernels once each
+     and the q2 NTT three times, and nothing else; K1 on 672 samples in
+     192 blocks (7 a recipient, each recipient's last block masked), the
+     batched key switch against each recipient's own product, K2 on 96
+     samples and K3 on 96 messages each under its own key, every
+     recipient's 3 index and 28 payload digests (encode_mac over 96 sets,
+     the index build's period), each bit-equal to its plain version on the
+     same inputs; recipient 0 decrypts [1,0,...,0];
   4+5. the omd oracle at the reference parameters, B = 1024 (8 pertinent
      messages, 1016 from a second key pack): key generation on the card,
      clues, Detector.warm(1024), detect through the kernels, decrypt,
@@ -106,7 +118,7 @@ Phases (each prints its result; any failure exits non-zero):
      samples and to the production kernels at the hot shapes, and the split
      of a CMUX step into its stages there (benches/probe_step_torch.py).
 The line before the last is a JSON record of the kernels (``launches``:
-phases 4+5, 7 and 8 together for K1-K5 and the encoders' kernels, phase 9's
+phases 3c, 4+5, 7 and 8 together for K1-K5 and the encoders' kernels, phase 9's
 timed runs for the probes,
 ``launches_by_path`` each (the ranks of phase
 8 are processes of their own: ``ranks`` is what rank 0's record counts),
@@ -166,6 +178,8 @@ PRODUCT_MULTIPLIES = {32: (3, 1), 64: (10, 4)}
 OMR_D = 8192
 OMR_PERTINENT = 50
 ENCODE_CHUNK = 2048  # the encoders' default chunk
+# phase 3c: the keys the card of the latency_d1_r96 cell holds
+RECIPIENTS = 96
 # phase 8: a batch that no shard count divides evenly, and the ranks' board
 SHARDED_BATCH = 1000
 SHARDED_REPS = 3
@@ -464,6 +478,100 @@ def phase_encode(ctx):
         say(f"[main path] {name} {res[name]['main_path_shape']}: {res[name]['ms']:.4f} ms, "
             f"bound {res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
     return res
+
+
+def phase_recipients(params, gpu):
+    """Phase 3c; returns the launches of the one detect and its encoders."""
+    from tfhe_omr_tpu_torch.core.context import OmrContext
+    from tfhe_omr_tpu_torch.core.detector import RecipientsDetector
+    from tfhe_omr_tpu_torch.core.keygen import DetectionKey, SecretKeyPack
+    from tfhe_omr_tpu_torch.core.params import RetrievalParams
+    from tfhe_omr_tpu_torch.utils import build
+    from tfhe_omr_tpu_torch.utils.timing import synchronize
+
+    ctx = OmrContext(params)
+    pack = SecretKeyPack(params, rng=SEED + 40, ctx=ctx)
+    first = pack.generate_detection_key()
+    gen = torch.Generator(device=ctx.device)
+    gen.manual_seed(SEED + 41)
+    fields = (ctx.f1, ctx.f1, ctx.f1, ctx.f2, ctx.f2, ctx.f2, ctx.f2)  # DetectionKey's order
+
+    def keys():
+        yield first
+        for _ in range(RECIPIENTS - 1):
+            yield DetectionKey(*(random_field(gen, f, t.shape) for f, t in zip(fields, first)))
+
+    t0 = time.perf_counter()
+    det = RecipientsDetector(keys(), ctx, RECIPIENTS)
+    del first
+    synchronize(ctx.device)
+    say(f"[recipients] {RECIPIENTS} keys held, {det.detect_key_size()} bytes, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    clues = pack.generate_sender().gen_clues(1, np.random.default_rng(SEED + 42))
+    rp = RetrievalParams.for_params(params, 1, 1)
+    payloads = np.random.default_rng(SEED + 43).integers(
+        0, 256, (1, rp.payload_length), dtype=np.int64)
+    det.warm(1)
+    det.warm_encoders(rp, 1)
+
+    def encoders(pv, plain=False):
+        return (det.encode_pertinent_indices(rp, pv, np.random.default_rng(SEED + 44),
+                                             plain=plain),
+                det.encode_pertinent_payloads(rp, pv, payloads, SEED + 45, plain=plain))
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    pv = det.detect(clues)
+    idx, pay = encoders(pv)
+    synchronize(ctx.device)
+    kernel_s = time.perf_counter() - t0
+    launches = {c: n for c, n in build.LAUNCHES.items() if n}
+    want = {"blind_rotate1": 1, "blind_rotate2": 1, "trace": 1, "ntt2": 3, "encode_mac": 2,
+            "encode_index_plain": 1, "encode_payload_plain": 1}
+    say(f"[recipients] one message under {RECIPIENTS} keys: detect and both encoders "
+        f"{kernel_s:.4f} s, launches {launches} on {gpu}")
+    if launches != want:
+        raise AssertionError(f"one detect and its encoders over {RECIPIENTS} keys launched "
+                             f"{launches}, not {want}")
+    shapes = (tuple(pv.shape), tuple(idx.shape), tuple(pay.shape))
+    if shapes != ((RECIPIENTS, 1, 2, params.n2),
+                  (RECIPIENTS, rp.max_encode_indices_cipher_count, 2, params.n2),
+                  (RECIPIENTS, rp.cmb_cipher_count, 2, params.n2)):
+        raise AssertionError(f"recipients' results of shapes {shapes}")
+
+    # each stage against its plain version on the same inputs
+    a, b7 = det._clues(clues)
+    t0 = time.perf_counter()
+    checks = []
+    ms = det.stage1(a, b7)
+    checks.append(("K1, key switch", ms, det.stage1(a, b7, plain=True)))
+    acc2 = det.stage2(*ms)
+    checks.append(("K2", acc2, det.stage2(*ms, plain=True)))
+    out = det.stage3(acc2)
+    checks.append(("K3, K4", out, det.stage3(acc2, plain=True)))
+    checks.append(("detect", pv, out.reshape(pv.shape)))
+    a_vec = random_field(gen, ctx.f1, (RECIPIENTS, params.n1))
+    b = random_field(gen, ctx.f1, (RECIPIENTS,))
+    own = [det.keyswitch(a_vec[r:r + 1], b[r:r + 1], det.ksk_f64[r]) for r in range(RECIPIENTS)]
+    checks.append(("key switch, each recipient's own product",
+                   det.keyswitch(a_vec, b, det.ksk_f64),
+                   tuple(torch.cat(part) for part in zip(*own))))
+    checks.append(("encoders", (idx, pay), encoders(pv, plain=True)))
+    for name, got, plain in checks:
+        got = got if isinstance(got, tuple) else (got,)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        if not all(torch.equal(g, p) for g, p in zip(got, plain, strict=True)):
+            raise AssertionError(f"{name} over {RECIPIENTS} keys != plain")
+    say(f"[recipients] K1 ({RECIPIENTS * params.clue_count} samples, "
+        f"{RECIPIENTS * -(-params.clue_count // det.br1.layout.s)} blocks), the batched key "
+        f"switch, K2 ({RECIPIENTS} samples), K3 ({RECIPIENTS} messages) and both encoders "
+        f"over {RECIPIENTS} keys bit-equal to plain ({time.perf_counter() - t0:.2f} s)")
+    q, t = params.q2, params.output_plain_modulus
+    dec = np.mod((pack.decrypt_rlwe2_ntt(pv[0]) * (2 * t) + q) // (2 * q), t)
+    if dec[0, 0] != 1 or dec[0, 1:].any():
+        raise AssertionError("recipient 0's pertinency under its key is not [1,0,...,0]")
+    say("[recipients] recipient 0 decrypts [1,0,...,0] from its share of the detect")
+    return launches
 
 
 def phase_omr(params, gpu):
@@ -1069,6 +1177,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     encode_results = phase_encode(ctx)
     torch.cuda.empty_cache()
+    recipients_launches = phase_recipients(params, gpu)
+    torch.cuda.empty_cache()
 
     build.reset_launches()
     run = run_omd(params, batch=BATCH, pertinent=PERTINENT, seed=SEED)
@@ -1145,11 +1255,13 @@ def main() -> int:
             "replaces": replaces,
             "launches": (launches.get(counter, 0) + omr_launches[counter]
                          + sharded_launches.get(counter, 0)
-                         + ranks_launches[counter]),
+                         + ranks_launches[counter]
+                         + recipients_launches.get(counter, 0)),
             "launches_by_path": {"omd": launches.get(counter, 0),
                                  "omr": omr_launches[counter],
                                  "sharded": sharded_launches.get(counter, 0),
-                                 "ranks": ranks_launches[counter]},
+                                 "ranks": ranks_launches[counter],
+                                 "recipients": recipients_launches.get(counter, 0)},
             "launches_per_detect": per_detect[counter],
             "warm_launches": warm_launches.get(counter, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1178,7 +1290,8 @@ def main() -> int:
         r = encode_results[jname]
         by_path = {"omr": omr_launches.get(counter, 0),
                    "sharded": sharded_launches.get(counter, 0),
-                   "ranks": ranks_launches.get(counter, 0)}
+                   "ranks": ranks_launches.get(counter, 0),
+                   "recipients": recipients_launches.get(counter, 0)}
         kernels.append({
             "name": jname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

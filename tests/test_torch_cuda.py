@@ -148,7 +148,8 @@ def test_blind_rotate_layout_matches_library(cuda, preset, level):
     ntt, g, lay = key.ntt, key.gadget, key.layout
     assert lay.word_bits == (32 if level == 1 else 64) and g.d % lay.dj == 0
     assert key.keys[0].dtype == lay.dtype
-    assert key.keys[0].shape == (key.n_steps, g.d // lay.dj, 3, lay.dj, 2, 2, ntt.n)
+    # a stack of one recipient's key
+    assert key.keys[0].shape == (1, key.n_steps, g.d // lay.dj, 3, lay.dj, 2, 2, ntt.n)
     assert (key.tw_fwd.numel(), key.tw_inv.numel()) == (2 * lay.tw_fwd, 2 * lay.tw_inv)
     bsk, bsk_sh = key.reference()
     assert bsk.dtype == torch.int64 and torch.equal(bsk_sh, ntt.field.shoup_t(bsk))
@@ -196,6 +197,106 @@ def test_trace_kernel_matches_plain(cuda, preset, m, rounds):
     assert torch.equal(got, trace_plain(acc, key))
 
 
+def _stack(keys):
+    stack = keys[0].empty_stack(len(keys))
+    for r, key in enumerate(keys):
+        stack.put(r, key)
+    return stack
+
+
+# per-recipient keys: R recipients' runs of ``per`` samples in one launch,
+# each run's last block of the first level masked as a ragged batch's
+@pytest.mark.parametrize("per", [1, 7])
+@pytest.mark.parametrize("recipients", [1, 2, 3])
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_kernel_per_recipient_keys(cuda, preset, level, recipients, per):
+    ctx = _ctx(preset, cuda)
+    f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
+        ctx.f2, ctx.ntt2, ctx.gadget_br2)
+    n_lwe, m = 4, recipients * per
+    gen = torch.Generator(device=cuda).manual_seed(20 + level + recipients)
+    keys = []
+    for _ in range(recipients):
+        bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+        keys.append(BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}"))
+    stack = _stack(keys)
+    acc = _uniform(gen, f.q, (m, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
+    amounts[:, 0] = 2 * ntt.n - 1
+    before = build.LAUNCHES[stack.name]
+    got = blind_rotate(acc, amounts, stack)
+    assert build.LAUNCHES[stack.name] == before + 1
+    want = torch.cat([blind_rotate(acc[r * per:(r + 1) * per],
+                                   amounts[:, r * per:(r + 1) * per], keys[r])
+                      for r in range(recipients)])
+    assert torch.equal(got, want)
+    assert torch.equal(got, blind_rotate_plain(acc, amounts, stack))
+
+
+@pytest.mark.parametrize("per", [1, 2])
+@pytest.mark.parametrize("recipients", [1, 2, 3])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_trace_kernel_per_recipient_keys(cuda, preset, recipients, per):
+    ctx = _ctx(preset, cuda)
+    f, g = ctx.f2, ctx.gadget_trace
+    gen = torch.Generator(device=cuda).manual_seed(30 + recipients)
+    keys = []
+    for _ in range(recipients):
+        tk = _uniform(gen, f.q, (len(ctx.trace_autos), ctx.params.n2, g.d, 2))
+        keys.append(TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, ctx.trace_autos))
+    stack = _stack(keys)
+    acc = _uniform(gen, f.q, (recipients * per, 2, ctx.params.n2))
+    got = trace(acc, stack)
+    assert torch.equal(got, torch.cat([trace(acc[r * per:(r + 1) * per], keys[r])
+                                       for r in range(recipients)]))
+    assert torch.equal(got, trace_plain(acc, stack))
+
+
+@pytest.mark.parametrize("recipients", [1, 3, 96])
+def test_encode_kernels_over_recipients(cuda, recipients):
+    ctx = _ctx("default", cuda)
+    f, n = ctx.f2, ctx.params.n2
+    rp = RetrievalParams.for_params(ctx.params, 1, 1)
+    gen = torch.Generator(device=cuda).manual_seed(50 + recipients)
+    rows, kct = 1, rp.cmb_cipher_count
+    pert = _uniform(gen, f.q, (recipients, rows, 2, n))
+    pn = _uniform(gen, f.q, (recipients, kct, rows, n))
+    acc = _uniform(gen, f.q, (recipients, kct, 2, n))
+    got = encode.encode_mac(f, pert, pn, acc)
+    assert torch.equal(got, encode.encode_mac(f, pert, pn, acc, plain=True))
+    args = (rp.index_slots_per_bucket, rp.polynomial_size, rp.index_modulus, ctx.params.q2)
+    base = torch.as_tensor(draw_index_buckets(rp, recipients * kct * rows,
+                                              np.random.default_rng(recipients)), device=cuda)
+    assert torch.equal(encode.index_plaintexts(base, 0, *args, period=rows),
+                       encode.index_plaintexts(base, 0, *args, plain=True, period=rows))
+
+
+def test_recipients_detector_on_card_matches_each_detector(cuda):
+    """Three recipients at the tiny preset: one detect and both encoders on
+    the card equal each recipient's own Detector and the plain path."""
+    from tfhe_omr_tpu_torch.core.detector import Detector, RecipientsDetector
+
+    params = OmrParameters.tiny()
+    ctx = OmrContext(params, cuda)
+    packs = [SecretKeyPack(params, rng=60 + r, ctx=ctx) for r in range(3)]
+    keys = [p.generate_detection_key() for p in packs]
+    det = RecipientsDetector(iter(keys), ctx, recipients=3)
+    clues = ClueBatch.concat([SecretKeyPack(params, rng=70, ctx=ctx).generate_sender()
+                              .gen_clues(2, np.random.default_rng(1))])
+    pv = det.detect(clues)
+    for r, key in enumerate(keys):
+        assert torch.equal(pv[r], Detector(key, ctx).detect(clues))
+    assert torch.equal(pv, det.detect(clues, plain=True))
+    rp = RetrievalParams.for_params(params, 2, 1)
+    payloads = random_payloads(np.random.default_rng(2), 2, rp.payload_length)
+    idx = det.encode_pertinent_indices(rp, pv, np.random.default_rng(3))
+    assert torch.equal(idx, det.encode_pertinent_indices(rp, pv, np.random.default_rng(3),
+                                                         plain=True))
+    pay = det.encode_pertinent_payloads(rp, pv, payloads, 4)
+    assert torch.equal(pay, det.encode_pertinent_payloads(rp, pv, payloads, 4, plain=True))
+
+
 @pytest.mark.parametrize("preset", PRESETS)
 def test_trace_key_on_card_holds_one_tensor(cuda, preset):
     """On a card the trace key is the kernel's layout alone, without
@@ -206,7 +307,8 @@ def test_trace_key_on_card_holds_one_tensor(cuda, preset):
     tk = _uniform(gen, f.q, (len(ctx.trace_autos), ctx.params.n2, g.d, 2))
     key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, ctx.trace_autos)
     assert len(key.keys) == 1 and key.nbytes() == tk.numel() * 8
-    assert key.keys[0].shape == (len(ctx.trace_autos), g.d, 2, ctx.params.n2)
+    # a stack of one recipient's key
+    assert key.keys[0].shape == (1, len(ctx.trace_autos), g.d, 2, ctx.params.n2)
     lay = key.layout
     assert (key.tw_fwd.numel(), key.tw_inv.numel()) == (2 * lay.tw_fwd, 2 * lay.tw_inv)
     ref, ref_sh = key.reference()

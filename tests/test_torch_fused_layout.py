@@ -224,7 +224,10 @@ def test_cpu_key_keeps_the_reference_layout():
                         generator=torch.Generator().manual_seed(1))
     sh = f.shoup_t(bsk)
     key = fused.BlindRotateKey(bsk, sh, ntt, g, "blind_rotate1")
-    assert not key.on_card and key.reference()[0] is bsk and key.reference()[1] is sh
+    ref, ref_sh = key.reference()
+    # the given tensors themselves, as a stack of one (views, nothing copied)
+    assert not key.on_card and ref._base is bsk and ref_sh._base is sh
+    assert torch.equal(ref, bsk) and torch.equal(ref_sh, sh) and key.recipients == 1
     assert key.nbytes() == 2 * bsk.numel() * 8
 
 

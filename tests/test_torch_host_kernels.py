@@ -118,6 +118,100 @@ def test_blind_rotate_kernel_on_host_matches_plain(host, preset, level, m):
                        fused.blind_rotate_plain(acc, amounts, key))
 
 
+def _stack(keys):
+    stack = keys[0].empty_stack(len(keys))
+    for r, key in enumerate(keys):
+        stack.put(r, key)
+    return stack
+
+
+# per-recipient keys: R recipients' runs of ``per`` samples in one launch;
+# 5 and 7 samples a run fill no whole block of the first level's S = 4
+# (each run's last block is masked as a ragged batch's), 1 a run is K2's
+# one message a recipient
+@pytest.mark.parametrize("per", [1, 7])
+@pytest.mark.parametrize("recipients", [1, 2, 3])
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_kernel_per_recipient_keys_on_host(host, level, recipients, per):
+    ctx = _ctx("tiny")
+    f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
+        ctx.f2, ctx.ntt2, ctx.gadget_br2)
+    n_lwe, m = 4, recipients * per
+    gen = torch.Generator().manual_seed(20 + level + recipients)
+    keys = []
+    for _ in range(recipients):
+        bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+        keys.append(fused.BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}"))
+    stack = _stack(keys)
+    assert stack.recipients == recipients and stack.keys[0].shape[0] == recipients
+    acc = _uniform(gen, f.q, (m, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
+    amounts[:, 0] = 2 * ntt.n - 1
+    got = fused.blind_rotate(acc, amounts, stack)
+    assert build.LAUNCHES[f"blind_rotate{level}"] == 1
+    runs = [slice(r * per, (r + 1) * per) for r in range(recipients)]
+    want = torch.cat([fused.blind_rotate_plain(acc[s], amounts[:, s], keys[r])
+                      for r, s in enumerate(runs)])
+    assert torch.equal(got, want)
+    assert torch.equal(fused.blind_rotate_plain(acc, amounts, stack), want)
+    # each run under its own key, not the first one's
+    if recipients > 1:
+        assert not torch.equal(got[runs[1]], fused.blind_rotate(
+            acc[runs[1]], amounts[:, runs[1]], keys[0]))
+
+
+@pytest.mark.parametrize("per", [1, 2])
+@pytest.mark.parametrize("recipients", [1, 2, 3])
+def test_trace_kernel_per_recipient_keys_on_host(host, recipients, per):
+    ctx = _ctx("tiny")
+    f, g = ctx.f2, ctx.gadget_trace
+    autos = ctx.trace_autos[:2]
+    gen = torch.Generator().manual_seed(30 + recipients)
+    keys = []
+    for _ in range(recipients):
+        tk = _uniform(gen, f.q, (len(autos), ctx.params.n2, g.d, 2))
+        keys.append(fused.TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, autos))
+    stack = _stack(keys)
+    acc = _uniform(gen, f.q, (recipients * per, 2, ctx.params.n2))
+    got = fused.trace(acc, stack)
+    assert build.LAUNCHES["trace"] == 1
+    want = torch.cat([fused.trace_plain(acc[r * per:(r + 1) * per], keys[r])
+                      for r in range(recipients)])
+    assert torch.equal(got, want)
+    assert torch.equal(fused.trace_plain(acc, stack), want)
+
+
+@pytest.mark.parametrize("recipients", [1, 2, 3])
+def test_encode_kernels_over_recipients_on_host(host, recipients):
+    """encode_mac over R sets in one launch == each set alone; the index
+    plaintexts of several digests' rows of the same messages (``period``)
+    == each digest's rows alone."""
+    ctx = _ctx("tiny")
+    f, n = ctx.f2, ctx.params.n2
+    rp = RetrievalParams.for_params(ctx.params, *ENCODE_BOARD)
+    gen = torch.Generator().manual_seed(50 + recipients)
+    rows, kct = 3, 2
+    pert = _uniform(gen, f.q, (recipients, rows, 2, n))
+    pn = _uniform(gen, f.q, (recipients, kct, rows, n))
+    acc = _uniform(gen, f.q, (recipients, kct, 2, n))
+    got = encode.encode_mac(f, pert, pn, acc)
+    assert build.LAUNCHES["encode_mac"] == 1
+    want = torch.stack([encode.encode_mac_plain(f, pert[r], pn[r], acc[r])
+                        for r in range(recipients)])
+    assert torch.equal(got, want)
+    assert torch.equal(encode.encode_mac(f, pert, pn, acc, plain=True), want)
+    lo = 5
+    args = (rp.index_slots_per_bucket, rp.polynomial_size, rp.index_modulus, ctx.params.q2)
+    base = torch.as_tensor(draw_index_buckets(rp, recipients * kct * rows,
+                                              np.random.default_rng(recipients)))
+    got = encode.index_plaintexts(base, lo, *args, period=rows)
+    want = torch.cat([encode.index_plaintexts(base[s:s + rows].contiguous(), lo, *args,
+                                              plain=True)
+                      for s in range(0, base.shape[0], rows)])
+    assert torch.equal(got, want)
+    assert torch.equal(encode.index_plaintexts(base, lo, *args, plain=True, period=rows), want)
+
+
 # the board whose digest layout the encoders' tests take: 28 payload digests
 ENCODE_BOARD = (4096, 50)
 

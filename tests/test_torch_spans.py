@@ -7,6 +7,9 @@
   span of a board, each stage inside the call it belongs to.
 * A two-device ``ShardedDetector`` on the CPU records each device's rows
   and one reduce inside each encoder call.
+* A ``RecipientsDetector`` of two recipients records its recipients and
+  the bytes of the keys it reads in ``detect.recipients/<R>/<bytes>`` and
+  ``encode.recipients/<R>``, and nothing unprofiled.
 """
 
 import contextlib
@@ -154,3 +157,66 @@ def test_sharded_encoder_spans_a_device_and_one_reduce(board, encoder):
     inside = [n for n, s, e in rows if s0 <= s and e <= e0 and (n, s) != (encoder, s0)]
     assert sorted(inside) == ["encode.draws", "encode.rows/cpu", "encode.rows/cpu",
                               "mesh.reduce"]
+
+
+
+@pytest.fixture(scope="module")
+def recipients():
+    """A two-recipient detector, one message's clues, its layout and
+    payload, and one pass of detect and both encoders, returned as a
+    function of the profiler context to run it in."""
+    from tfhe_omr_tpu_torch.core.detector import RecipientsDetector
+    from tfhe_omr_tpu_torch.core.params import RetrievalParams
+
+    params = OmrParameters.tiny()
+    ctx = OmrContext(params, "cpu")
+    packs = [SecretKeyPack(params, rng=SEED + 10 + r, ctx=ctx) for r in range(2)]
+    det = RecipientsDetector((p.generate_detection_key() for p in packs), ctx, 2)
+    clues = packs[1].generate_sender().gen_clues(1, np.random.default_rng(SEED))
+    rp = RetrievalParams.for_params(params, 1, 1)
+    payloads = random_payloads(np.random.default_rng(SEED), 1, params.payload_length)
+
+    def one_pass(context):
+        with context:
+            pv = det.detect(clues)
+            det.encode_pertinent_indices(rp, pv, np.random.default_rng(SEED))
+            det.encode_pertinent_payloads(rp, pv, payloads, SEED)
+        return pv
+
+    return det, one_pass
+
+
+def test_recipients_spans_name_the_recipients_and_key_bytes(recipients):
+    """A two-recipient detector's detect runs in ``detect`` and
+    ``detect.recipients/2/<bytes of every key it reads>``, each encoder in
+    its own span and ``encode.recipients/2``."""
+    det, one_pass = recipients
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert one_pass(contextlib.nullcontext()).shape[0] == 2
+    rows = _program_spans(prof)
+    names = [n for n, _s, _e in rows]
+    key_bytes = det.detect_key_size()
+    assert key_bytes == sum(k.nbytes() for k in (det.br1, det.br2, det.tr)) + \
+        det.ksk_f64.numel() * 8
+    key_span = f"detect.recipients/2/{key_bytes}"
+    assert names.count(key_span) == 1 and names.count("encode.recipients/2") == 2
+    assert all(_within(rows, key_span, "detect"))
+    assert all(_within(rows, "detect.stage1", key_span))
+    assert any(_within(rows, "encode.recipients/2", "encode.index"))
+    assert any(_within(rows, "encode.recipients/2", "encode.payload"))
+
+
+def test_recipients_spans_cost_nothing_unprofiled(monkeypatch, recipients):
+    """With no profiler recording, a pass through the detector of many
+    recipients enters no ``record_function``."""
+    entered = []
+    enter = torch.autograd.profiler.record_function.__enter__
+
+    def counting(self):
+        entered.append(self.name)
+        return enter(self)
+
+    monkeypatch.setattr(torch.autograd.profiler.record_function, "__enter__", counting)
+    _det, one_pass = recipients
+    one_pass(contextlib.nullcontext())
+    assert entered == []

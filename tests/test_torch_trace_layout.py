@@ -59,7 +59,10 @@ def test_cpu_trace_key_keeps_the_reference_layout():
                        generator=torch.Generator().manual_seed(1))
     sh = f.shoup_t(tk)
     key = fused.TraceKey(tk, sh, ctx.ntt2, g, ctx.trace_autos)
-    assert not key.on_card and key.reference()[0] is tk and key.reference()[1] is sh
+    ref, ref_sh = key.reference()
+    # the given tensors themselves, as a stack of one (views, nothing copied)
+    assert not key.on_card and ref._base is tk and ref_sh._base is sh
+    assert torch.equal(ref, tk) and torch.equal(ref_sh, sh) and key.recipients == 1
     assert key.nbytes() == 2 * tk.numel() * 8
 
 

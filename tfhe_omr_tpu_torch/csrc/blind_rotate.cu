@@ -71,6 +71,20 @@
 //
 // Ragged batches: samples beyond n_msgs are loaded as zeros and not stored.
 //
+// Several keys (one a recipient, core/detector.py RecipientsDetector): the
+// keys lie one after another, and samples k per_key .. (k + 1) per_key - 1
+// take key k. A block's S samples are one key's, so each key read is still
+// shared by the block's samples: a key takes ceil(per_key / S) blocks, and
+// its last block masks the samples beyond the key's as a ragged batch's
+// last block does (7 samples a message at S = 4: 2 blocks, the second of
+// 3). The block finds its key once, before the step loop, as the index of
+// its first plane in the stacked keys, where the key ring starts counting:
+// the step loop is the one-key loop, and with one key (per_key = n_msgs)
+// the first plane is 0 and block b takes samples b S .. b S + S - 1.
+// Every block of one key then reads the same planes at about the same time
+// and the L2 cache serves them; with a key a block (K2 at one message a
+// recipient) each block streams its own key from device memory.
+//
 // What bounds it: the integer work. Bytes (each input once): 0.17 GB and
 // 0.43 GB, under 0.2 ms. int32 multiplies at 1.675e13 a second (half the
 // float32 lanes): a product with a twiddle or 1/N (Shoup) is 3 of them in
@@ -125,16 +139,19 @@ extern "C" int omr_blind_rotate_config(int log_n, int64_t q, int d, int log_b, i
 // acc (n_msgs, 2, N) int64 coefficient domain; amounts (2 * n_steps, n_msgs)
 // int64 in [0, 2N); key, mono, tw_fwd, tw_inv in the instantiation's word
 // (see blind_rotate.cuh), laid out by the constants omr_blind_rotate_config
-// reports; orders (N,) int32 base orders; blocks the grid: at least
-// n_msgs / S, the kernel masks what lies beyond n_msgs.
+// reports, n_msgs / per_key keys one after another; orders (N,) int32 base
+// orders; per_key the samples of a key (n_msgs with one key; it divides
+// n_msgs); blocks the grid: n_msgs / per_key keys of ceil(per_key / S)
+// blocks, the kernel masks what lies beyond each key's.
 extern "C" int omr_blind_rotate(
     const int64_t* acc_in, int64_t* acc_out, const int64_t* amounts,
     int64_t n_msgs, int n_steps, const void* key, const void* mono,
     const int* orders, const void* tw_fwd, const void* tw_inv, uint64_t n_inv,
     uint64_t n_inv_sh, int log_n, int64_t q, int d, int log_b, int blocks,
-    void* stream) {
+    void* stream, int64_t per_key) {
   const BrArgs a{acc_in, acc_out, amounts, n_msgs, n_steps, key, mono, orders,
-                 tw_fwd, tw_inv, n_inv, n_inv_sh, log_n, d, log_b, q, blocks, stream};
+                 tw_fwd, tw_inv, n_inv, n_inv_sh, log_n, d, log_b, q, blocks, stream,
+                 per_key};
   if (matches<BrL1>(a)) return launch<BrL1>(a);
   if (matches<BrL2>(a)) return launch<BrL2>(a);
   if (matches<BrTinyL1>(a)) return launch<BrTinyL1>(a);

@@ -189,7 +189,9 @@ struct BrAccumulate {
 
 // ----------------------------------------------------------------- kernel
 // acc (n_msgs, 2, N) int64; amounts (2 n_steps, n_msgs) int64 in [0, 2N);
-// key (n_steps, D/DJ, 3, DJ, 2, 2, N) words in the base slot order;
+// key (n_msgs / per_key, n_steps, D/DJ, 3, DJ, 2, 2, N) words in the base
+// slot order: samples k per_key .. k per_key + per_key - 1 take key k (one
+// key: per_key = n_msgs);
 // mono (2N) words psi^e - 1; orders (N) int32 base orders;
 // tw_fwd / tw_inv: per-pass twiddles, each followed by its companion.
 template <class C>
@@ -199,7 +201,7 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
     const typename C::W* __restrict__ key, const typename C::W* __restrict__ mono,
     const int* __restrict__ orders, const typename C::W* __restrict__ tw_fwd,
     const typename C::W* __restrict__ tw_inv, typename C::W n_inv,
-    typename C::W n_inv_sh) {
+    typename C::W n_inv_sh, long long per_key) {
   typedef typename C::W W;
   typedef typename C::F F;
   typedef typename C::Wide Wide;
@@ -213,14 +215,24 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
   const CachedTable<W> tw_i{reinterpret_cast<const Operand<W>*>(tw_inv)};
   const PolyBuffer<C> digits{sm + C::OFF_DIG};
   const int tid = threadIdx.x;
-  const long long msg0 = (long long)blockIdx.x * S;
+  // the block's samples: S of one key's per_key, from sample msg0 on; the
+  // last block of a key masks those beyond the key's, so a block never
+  // straddles two keys. With one key (per_key == n_msgs) this is block
+  // b's samples b S .. b S + S - 1.
+  const long long key_blocks = (per_key + S - 1) / S;
+  const int key_index = (int)(blockIdx.x / key_blocks);
+  const long long key_lo = (blockIdx.x - key_index * key_blocks) * S;
+  const long long msg0 = key_index * per_key + key_lo;
+  const int n_valid = per_key - key_lo < S ? (int)(per_key - key_lo) : S;
 
   // key pipeline: each thread stages, for itself, the VEC slots of its G
-  // groups of every plane, NST - 2 planes ahead of their use
-  const int total_planes = n_steps * C::PLANES;
-  int produced = 0, consumed = 0;
+  // groups of every plane of its block's key (the stacked keys' planes
+  // first_plane .. end_plane - 1), NST - 2 planes ahead of their use
+  const int first_plane = key_index * n_steps * C::PLANES;
+  const int end_plane = first_plane + n_steps * C::PLANES;
+  int produced = first_plane, consumed = first_plane;
   auto stage_next = [&]() {
-    if (produced < total_planes) {
+    if (produced < end_plane) {
       const W* src = key + (size_t)produced * N;
       W* dst = ring + (produced & (NST - 1)) * N;
 #pragma unroll
@@ -238,7 +250,7 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
   for (int k = tid; k < S * 2 * N; k += C::T) {
     const int s = k / (2 * N);
     const int r = k % (2 * N);
-    const bool valid = msg0 + s < n_msgs;
+    const bool valid = s < n_valid;
     sm[C::OFF_ACC + (s * 2 + r / N) * C::NP + C::pad(r % N)] =
         valid ? (W)acc_in[(msg0 + s) * 2 * N + r] : (W)0;
   }
@@ -338,7 +350,8 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
     // a_t * order mod 2N), summed over the rows, into the digit buffer
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const bool valid = msg0 + s < n_msgs;
+      // a block of one sample always holds a valid one
+      const bool valid = S == 1 || s < n_valid;
       const int a0 = valid ? (int)amounts[(long long)(2 * step) * n_msgs + msg0 + s] : 0;
       const int a1 = valid ? (int)amounts[(long long)(2 * step + 1) * n_msgs + msg0 + s] : 0;
       const int amt[3] = {a0, a1, a0 + a1};
@@ -371,7 +384,7 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
   for (int k = tid; k < S * 2 * N; k += C::T) {
     const int s = k / (2 * N);
     const int r = k % (2 * N);
-    if (msg0 + s < n_msgs)
+    if (s < n_valid)
       acc_out[(msg0 + s) * 2 * N + r] =
           (i64)sm[C::OFF_ACC + (s * 2 + r / N) * C::NP + C::pad(r % N)];
   }
@@ -404,6 +417,7 @@ struct BrArgs {
   int64_t q;
   int blocks;
   void* stream;
+  int64_t per_key;
 };
 
 template <class C>
@@ -416,11 +430,14 @@ static int launch(const BrArgs& a) {
   typedef typename C::W W;
   cudaError_t err = allow_smem(blind_rotate_kernel<C>, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  if (((int64_t)a.blocks * C::S) < a.n_msgs || a.n_steps > INT32_MAX / C::PLANES)
+  if (a.per_key < 1 || a.n_msgs % a.per_key ||
+      a.n_msgs / a.per_key * a.n_steps > INT32_MAX / C::PLANES ||
+      (int64_t)a.blocks != a.n_msgs / a.per_key * ((a.per_key + C::S - 1) / C::S))
     return (int)cudaErrorInvalidValue;
   OMR_LAUNCH(blind_rotate_kernel<C>, (unsigned)a.blocks, C::T, C::SMEM_BYTES, a.stream,
              (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
              (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
-             (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh);
+             (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh,
+             (long long)a.per_key);
   return (int)cudaGetLastError();
 }

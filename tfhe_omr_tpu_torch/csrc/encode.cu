@@ -9,7 +9,9 @@
 // index_poly_device and payload_plain_device.
 //
 // encode_mac: acc[k, c, i] += sum over m of pert[m, c, i] * pn[k, m, i]
-// mod Q, for all K digests of a chunk in one launch.
+// mod Q, for all K digests of a chunk in one launch; with several sets (one
+// a recipient, core/detector.py RecipientsDetector) each set's digests sum
+// its own rows, all sets in the same launch.
 //
 // What bounds it: bytes. At 2048 rows and 28 digests it reads 940 MB of
 // NTT-domain plaintexts and 67 MB of pertinency (about 0.30 ms at 3.35
@@ -90,9 +92,10 @@ static MacPlan mac_plan(int k_count, int n) {
   return p;
 }
 
-// pert (rows, 2, n); pn (k_count, rows, n); acc_in, acc_out (k_count, 2, n);
-// every word a canonical residue. smem: lanes x groups x MAC_TILE x MAC_G x 2
-// words when lanes > 1.
+// pert (sets, rows, 2, n); pn (sets, k_count, rows, n); acc_in, acc_out
+// (sets, k_count, 2, n); every word a canonical residue; a set takes
+// ceil(n / MAC_TILE) blocks of the grid. smem: lanes x groups x MAC_TILE x
+// MAC_G x 2 words when lanes > 1.
 template <class F>
 __global__ void __launch_bounds__(MAC_T) encode_mac_kernel(
     const i64* __restrict__ pert, const i64* __restrict__ pn,
@@ -106,7 +109,13 @@ __global__ void __launch_bounds__(MAC_T) encode_mac_kernel(
   const int s = t % MAC_TILE;
   const int g = (t / MAC_TILE) % groups;
   const int lane = t / (MAC_TILE * groups);
-  const int i = blockIdx.x * MAC_TILE + s;
+  const int set_blocks = (n + MAC_TILE - 1) / MAC_TILE;
+  const long long set = blockIdx.x / set_blocks;
+  const int i = (blockIdx.x - (int)set * set_blocks) * MAC_TILE + s;
+  pert += set * rows * 2 * n;
+  pn += set * k_count * rows * n;
+  acc_in += set * k_count * 2 * n;
+  acc_out += set * k_count * 2 * n;
   const int k0 = g * MAC_G;
   // digests this thread sums: none beyond the ring's end
   const int kn = i < n ? (int)lmin(MAC_G, k_count - k0) : 0;
@@ -192,10 +201,12 @@ static bool has_field(int64_t q) {
 
 template <class F>
 static int launch_mac(const int64_t* pert, const int64_t* pn, const int64_t* acc_in,
-                      int64_t* acc_out, int64_t rows, int k_count, int n, void* stream) {
+                      int64_t* acc_out, int64_t rows, int k_count, int n, int sets,
+                      void* stream) {
   const MacPlan p = mac_plan(k_count, n);
   const size_t smem = p.lanes > 1 ? (size_t)p.threads * MAC_G * 2 * sizeof(u64) : 0;
-  OMR_LAUNCH(encode_mac_kernel<F>, (unsigned)p.blocks, (unsigned)p.threads, smem, stream,
+  OMR_LAUNCH(encode_mac_kernel<F>, (unsigned)(p.blocks * sets), (unsigned)p.threads, smem,
+             stream,
              (const i64*)pert, (const i64*)pn, (const i64*)acc_in, (i64*)acc_out,
              (long long)rows, k_count, n, p.groups, p.lanes);
   return (int)cudaGetLastError();
@@ -206,17 +217,20 @@ extern "C" int omr_encode_mac_field(int64_t q) {
   return has_field<EncQ2>(q) || has_field<EncTinyQ2>(q) ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// acc_out = acc_in + sum over the rows of pert * pn, mod q; all int64
-// row-major and contiguous: pert (rows, 2, n), pn (k_count, rows, n),
-// acc_in / acc_out (k_count, 2, n), canonical residues in and out.
+// acc_out = acc_in + sum over the rows of pert * pn, mod q, for each of
+// ``sets`` sets; all int64 row-major and contiguous: pert (sets, rows, 2, n),
+// pn (sets, k_count, rows, n), acc_in / acc_out (sets, k_count, 2, n),
+// canonical residues in and out.
 extern "C" int omr_encode_mac(const int64_t* pert, const int64_t* pn, const int64_t* acc_in,
                               int64_t* acc_out, int64_t rows, int k_count, int n, int64_t q,
-                              void* stream) {
-  if (k_count < 1 || n < 1 || rows < 0) return (int)cudaErrorInvalidValue;
+                              void* stream, int sets) {
+  if (k_count < 1 || n < 1 || rows < 0 || sets < 1 ||
+      (int64_t)sets * ((n + MAC_TILE - 1) / MAC_TILE) > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   if (has_field<EncQ2>(q))
-    return launch_mac<EncQ2>(pert, pn, acc_in, acc_out, rows, k_count, n, stream);
+    return launch_mac<EncQ2>(pert, pn, acc_in, acc_out, rows, k_count, n, sets, stream);
   if (has_field<EncTinyQ2>(q))
-    return launch_mac<EncTinyQ2>(pert, pn, acc_in, acc_out, rows, k_count, n, stream);
+    return launch_mac<EncTinyQ2>(pert, pn, acc_in, acc_out, rows, k_count, n, sets, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -249,13 +263,15 @@ __global__ void __launch_bounds__(BUILD_T) encode_payload_plain_kernel(
 }
 
 // Index digests: out (rows, n); row b holds, in every segment s, the nd
-// base-p digits of lo + b (least first, centred) at slots base[b, s] ..
+// base-p digits of lo + b mod period (least first, centred; several
+// digests' rows of the same messages one after another, period rows each)
+// at slots base[b, s] ..
 // base[b, s] + nd - 1 and a flag 1 at base[b, s] + nd, every other slot 0.
 // Where the slots of two segments meet, the larger offset wins, as the
 // plain version's scatters (one a digit, in order) leave it.
 __global__ void __launch_bounds__(BUILD_T) encode_index_plain_kernel(
     const i64* __restrict__ base, long long lo, i64* __restrict__ out, long long rows,
-    int segs, int nd, int n, long long p, long long q) {
+    int segs, int nd, int n, long long p, long long q, long long period) {
   for (long long b = blockIdx.x; b < rows; b += gridDim.x) {
     const i64* br = base + b * segs;
     i64* dst = out + b * n;
@@ -269,7 +285,7 @@ __global__ void __launch_bounds__(BUILD_T) encode_index_plain_kernel(
       if (off == nd) {
         v = 1;
       } else if (off >= 0) {
-        long long x = lo + b;
+        long long x = lo + b % period;
         for (long long e = 0; e < off; ++e) x = floor_div(x, p);
         v = centre(floor_mod(x, p), p, q);
       }
@@ -291,14 +307,15 @@ extern "C" int omr_encode_payload_plain(const int64_t* pay, const int64_t* w, in
   return (int)cudaGetLastError();
 }
 
-// The index plaintexts of the rows lo .. lo + rows - 1 of a board (see the
-// kernel); base (rows, segs) contiguous.
+// The index plaintexts of the messages lo .. lo + period - 1 of a board,
+// rows / period digests of them (see the kernel; period = rows for one);
+// base (rows, segs) contiguous.
 extern "C" int omr_encode_index_plain(const int64_t* base, int64_t lo, int64_t* out,
                                       int64_t rows, int segs, int nd, int n, int64_t p,
-                                      int64_t q, int blocks, void* stream) {
-  if (blocks < 1 || p < 1) return (int)cudaErrorInvalidValue;
+                                      int64_t q, int blocks, void* stream, int64_t period) {
+  if (blocks < 1 || p < 1 || period < 1) return (int)cudaErrorInvalidValue;
   OMR_LAUNCH(encode_index_plain_kernel, (unsigned)blocks, BUILD_T, 0, stream,
              (const i64*)base, (long long)lo, (i64*)out, (long long)rows, segs, nd, n,
-             (long long)p, (long long)q);
+             (long long)p, (long long)q, (long long)period);
   return (int)cudaGetLastError();
 }

@@ -35,7 +35,9 @@
 // key and 32 KB a message; per message and round 25 forward and 2 inverse
 // 2048-point transforms (10 int32 multiplies a butterfly) and 102,400 key
 // products (4 each). Ragged batches: messages beyond n_msgs are loaded as
-// zeros and not stored.
+// zeros and not stored. Several keys (one a recipient), one after another:
+// messages k per_key .. (k + 1) per_key - 1 take key k, and a block never
+// straddles two keys (blind_rotate.cu has the same scheme).
 #include "trace.cuh"
 
 //                 W    logN  d   logB  q                    S  T    DJ RLOG
@@ -56,6 +58,7 @@ struct TrArgs {
   int log_n, d, log_b;
   int64_t q;
   void* stream;
+  int64_t per_key;
 };
 
 template <class C>
@@ -68,12 +71,13 @@ static int launch(const TrArgs& a) {
   typedef typename C::W W;
   cudaError_t err = allow_smem(trace_kernel<C>, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (a.n_msgs + C::S - 1) / C::S;
+  if (a.per_key < 1 || a.n_msgs % a.per_key) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = a.n_msgs / a.per_key * ((a.per_key + C::S - 1) / C::S);
   if (blocks > INT32_MAX || a.rounds < 0) return (int)cudaErrorInvalidValue;
   OMR_LAUNCH(trace_kernel<C>, (unsigned)blocks, C::T, C::SMEM_BYTES, a.stream,
              (const i64*)a.acc_in, (i64*)a.acc_out, (long long)a.n_msgs, a.rounds,
              a.ginv, (const W*)a.key, (const W*)a.tw_fwd, (const W*)a.tw_inv,
-             (W)a.n_inv, (W)a.n_inv_sh);
+             (W)a.n_inv, (W)a.n_inv_sh, (long long)a.per_key);
   return (int)cudaGetLastError();
 }
 
@@ -93,15 +97,17 @@ extern "C" int omr_trace_config(int log_n, int64_t q, int d, int log_b, int* out
 }
 
 // acc (n_msgs, 2, N) int64 coefficient domain; ginv (rounds) int32; key
-// (rounds, d, 2, N), tw_fwd, tw_inv in the instantiation's word, laid out by
-// the constants omr_trace_config reports; exact base-2^log_b digits.
+// (n_msgs / per_key, rounds, d, 2, N) one after another, tw_fwd, tw_inv in the
+// instantiation's word, laid out by the constants omr_trace_config reports;
+// exact base-2^log_b digits; per_key the messages of a key (it divides
+// n_msgs; n_msgs with one key).
 extern "C" int omr_trace(const int64_t* acc_in, int64_t* acc_out, int64_t n_msgs,
                          int rounds, const int* ginv, const void* key,
                          const void* tw_fwd, const void* tw_inv, uint64_t n_inv,
                          uint64_t n_inv_sh, int log_n, int64_t q, int d, int log_b,
-                         void* stream) {
+                         void* stream, int64_t per_key) {
   const TrArgs a{acc_in, acc_out, n_msgs, rounds, ginv, key, tw_fwd, tw_inv,
-                 n_inv, n_inv_sh, log_n, d, log_b, q, stream};
+                 n_inv, n_inv_sh, log_n, d, log_b, q, stream, per_key};
   if (matches<TrRef>(log_n, q, d, log_b)) return launch<TrRef>(a);
   if (matches<TrTiny>(log_n, q, d, log_b)) return launch<TrTiny>(a);
   return (int)cudaErrorInvalidValue;

@@ -106,14 +106,16 @@ struct TrUpdate {
 
 // ----------------------------------------------------------------- kernel
 // acc (n_msgs, 2, N) int64; ginv (rounds) int32, the inverse mod 2N of each
-// round's Galois element; key (rounds, D, 2, N) words in the base slot
-// order; tw_fwd / tw_inv: per-pass twiddles, each followed by its companion.
+// round's Galois element; key (n_msgs / per_key, rounds, D, 2, N) words in
+// the base slot order: messages k per_key .. k per_key + per_key - 1 take
+// key k (one key: per_key = n_msgs); tw_fwd / tw_inv:
+// per-pass twiddles, each followed by its companion.
 template <class C>
 __global__ void __launch_bounds__(C::T, 1) trace_kernel(
     const i64* __restrict__ acc_in, i64* __restrict__ acc_out, long long n_msgs,
     int rounds, const int* __restrict__ ginv, const typename C::W* __restrict__ key,
     const typename C::W* __restrict__ tw_fwd, const typename C::W* __restrict__ tw_inv,
-    typename C::W n_inv, typename C::W n_inv_sh) {
+    typename C::W n_inv, typename C::W n_inv_sh, long long per_key) {
   typedef typename C::W W;
   typedef typename C::F F;
   typedef typename C::Wide Wide;
@@ -125,13 +127,19 @@ __global__ void __launch_bounds__(C::T, 1) trace_kernel(
   const CachedTable<W> tw_i{reinterpret_cast<const Operand<W>*>(tw_inv)};
   const PolyBuffer<C> digits{sm + C::OFF_DIG};
   const int tid = threadIdx.x;
-  const long long msg0 = (long long)blockIdx.x * S;
+  // the block's messages: S of one key's per_key (as blind_rotate.cuh)
+  const long long key_blocks = (per_key + S - 1) / S;
+  const long long key_index = blockIdx.x / key_blocks;
+  const long long key_lo = (blockIdx.x - key_index * key_blocks) * S;
+  const long long msg0 = key_index * per_key + key_lo;
+  const int n_valid = per_key - key_lo < S ? (int)(per_key - key_lo) : S;
+  key += (size_t)key_index * rounds * D * 2 * N;
 
   for (int k = tid; k < 2 * C::TW_FWD; k += C::T) sm[C::OFF_TWF + k] = tw_fwd[k];
   for (int k = tid; k < S * 2 * N; k += C::T) {
     const int s = k / (2 * N);
     const int r = k % (2 * N);
-    const bool valid = msg0 + s < n_msgs;
+    const bool valid = s < n_valid;
     sm[C::OFF_ACC + (s * 2 + r / N) * C::NP + C::pad(r % N)] =
         valid ? (W)acc_in[(msg0 + s) * 2 * N + r] : (W)0;
   }
@@ -212,7 +220,7 @@ __global__ void __launch_bounds__(C::T, 1) trace_kernel(
   for (int k = tid; k < S * 2 * N; k += C::T) {
     const int s = k / (2 * N);
     const int r = k % (2 * N);
-    if (msg0 + s < n_msgs)
+    if (s < n_valid)
       acc_out[(msg0 + s) * 2 * N + r] =
           (i64)sm[C::OFF_ACC + (s * 2 + r / N) * C::NP + C::pad(r % N)];
   }

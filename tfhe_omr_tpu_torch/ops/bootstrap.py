@@ -99,6 +99,10 @@ def make_lwe_keyswitch(field: PrimeField, digits: int, n_out: int):
     key: every partial sum is an integer below digits*n_in*q < 2**53, so it
     is exact in any summation order (cuBLAS has no int64 GEMM; the JAX
     package's int8 limb planes exist only for the TPU's MXU).
+
+    A stack of R recipients' keys (R, digits*n_in, n_out+1) splits the B
+    ciphertexts into R equal runs, run r switched under key r: one batched
+    product, each run against its own key (one key is a stack of one).
     """
 
     def keyswitch(a_vec, b, ksk_f64):
@@ -106,7 +110,9 @@ def make_lwe_keyswitch(field: PrimeField, digits: int, n_out: int):
         shifts = torch.arange(digits, dtype=torch.int64, device=a_vec.device)
         bits = (a_vec[:, None, :] >> shifts[None, :, None]) & 1
         bits = bits.reshape(bsz, digits * n_in).to(torch.float64)
-        acc = torch.matmul(bits, ksk_f64).to(torch.int64)
+        ksk = ksk_f64.reshape(-1, *ksk_f64.shape[-2:])
+        acc = torch.bmm(bits.reshape(ksk.shape[0], bsz // ksk.shape[0], -1), ksk)
+        acc = acc.reshape(bsz, -1).to(torch.int64)
         acc = field.reduce(acc, (digits * n_in * field.q).bit_length() + 1)
         return field.neg(acc[:, :n_out]), field.sub(b, acc[:, n_out])
 

@@ -3,7 +3,11 @@
 For a chunk of B messages and K digests (the 28 payload digests at once, or
 one index digest) the encoders build the (K, B, N2) plaintext rows, take
 them to the NTT domain in one K4 launch (``Ntt.fwd_last``) and add
-``sum_m pert[m] * NTT(plain[k, m]) mod q2`` into each digest.
+``sum_m pert[m] * NTT(plain[k, m]) mod q2`` into each digest. For R
+recipients at once (``core/detector.py RecipientsDetector``) each of the
+three is still one launch: the rows of every recipient's digests are built
+and transformed together, and ``encode_mac`` sums each recipient's
+pertinency against its own rows (``sets``).
 
 Wrappers of ``csrc/encode.cu``: a CPU tensor runs the plain torch version,
 a CUDA tensor launches the kernel or raises; ``plain=True`` runs the plain
@@ -96,13 +100,20 @@ def encode_mac(field: PrimeField, pert: torch.Tensor, pn: torch.Tensor,
     """:func:`encode_mac_plain` for all K digests of a chunk: the plain
     version on a CPU tensor or with ``plain=True``, else one launch of the
     ``csrc/encode.cu`` kernel instantiated for ``field.q`` (another q
-    raises)."""
+    raises). With a leading axis of R sets on all three, pert (R, B, 2, N),
+    pn (R, K, B, N), acc (R, K, 2, N), each set's digests take its own rows,
+    still in one launch."""
+    lead = tuple(pn.shape[:-3])  # (R,) with R sets, else ()
     if plain or build.device_kind(pert) == "cpu":
+        if lead:
+            return torch.stack([encode_mac_plain(field, pert[r], pn[r], acc[r])
+                                for r in range(lead[0])])
         return encode_mac_plain(field, pert, pn, acc)
-    kct, rows, n = pn.shape
-    if tuple(pert.shape) != (rows, 2, n) or tuple(acc.shape) != (kct, 2, n):
+    kct, rows, n = pn.shape[-3:]
+    if (tuple(pert.shape) != (*lead, rows, 2, n) or tuple(acc.shape) != (*lead, kct, 2, n)
+            or not (pert.is_contiguous() and pn.is_contiguous() and acc.is_contiguous())):
         raise ValueError(f"encode_mac: pert {tuple(pert.shape)}, pn {tuple(pn.shape)}, "
-                         f"acc {tuple(acc.shape)}")
+                         f"acc {tuple(acc.shape)}, each contiguous")
     lib = build.library()
     if lib.omr_encode_mac_field(field.q):
         raise ValueError(f"no encode_mac kernel is instantiated for q = {field.q}")
@@ -111,7 +122,7 @@ def encode_mac(field: PrimeField, pert: torch.Tensor, pn: torch.Tensor,
     with torch.cuda.device(pert.device):
         rc = lib.omr_encode_mac(build.ptr(pert), build.ptr(pn), build.ptr(acc),
                                 build.ptr(out), rows, kct, n, field.q,
-                                build.stream_of(pert))
+                                build.stream_of(pert), lead[0] if lead else 1)
     build.check(lib, rc, "encode_mac")
     build.LAUNCHES["encode_mac"] += 1
     return out
@@ -156,14 +167,19 @@ def payload_plaintexts(payloads: torch.Tensor, weights: torch.Tensor, n2: int,
 
 
 def index_plaintexts(base_addr: torch.Tensor, lo: int, nd: int, n2: int, idx_p: int,
-                     q2: int, plain: bool = False, out=None) -> torch.Tensor:
+                     q2: int, plain: bool = False, out=None,
+                     period: int | None = None) -> torch.Tensor:
     """The index plaintext polys (B, N2) of the messages ``lo .. lo + B`` of
     a board (:func:`index_poly_device`), in one launch on a card:
     ``base_addr`` (B, segs) their rows of the bucket draws; written into the
-    front of ``out`` where one is given (on a card)."""
+    front of ``out`` where one is given (on a card). With ``period``, the
+    rows are B / period digests' rows of the messages ``lo .. lo + period``
+    one after another (row b is message ``lo + b % period``): every digest
+    of several recipients in one launch."""
     rows = base_addr.shape[0]
+    period = period or max(rows, 1)
     if plain or build.device_kind(base_addr) == "cpu":
-        idx = torch.arange(lo, lo + rows, dtype=torch.int64, device=base_addr.device)
+        idx = torch.arange(rows, dtype=torch.int64, device=base_addr.device) % period + lo
         return index_poly_device(base_addr, idx, nd, n2, idx_p, q2)
     out = _out(out, (rows, n2), base_addr)
     build.require_cuda("encode_index_plain", base_addr, out)
@@ -171,7 +187,7 @@ def index_plaintexts(base_addr: torch.Tensor, lo: int, nd: int, n2: int, idx_p: 
     with torch.cuda.device(base_addr.device):
         rc = lib.omr_encode_index_plain(
             build.ptr(base_addr), lo, build.ptr(out), rows, base_addr.shape[1], nd, n2,
-            idx_p, q2, _blocks(base_addr, rows), build.stream_of(base_addr))
+            idx_p, q2, _blocks(base_addr, rows), build.stream_of(base_addr), period)
     build.check(lib, rc, "encode_index_plain")
     build.LAUNCHES["encode_index_plain"] += 1
     return out

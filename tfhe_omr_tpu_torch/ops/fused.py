@@ -16,9 +16,18 @@ permuted once into the radix-2 slot order of the in-kernel NTT with the
 coefficient slot innermost, in the order and word size in which the kernel
 consumes it and without companions (the kernels sum their key products
 lazily): :func:`kernel_key_layout`, :func:`trace_key_layout`.
-``reference()`` gives the reference layout back (gathered on the card, the
-companions recomputed) for the plain version. The layout constants of each
-kernel come from the built library (:func:`br_layout`, :func:`tr_layout`).
+``reference(r)`` gives recipient r's key back in the reference layout
+(gathered on the card, the companions recomputed) for the plain version.
+The layout constants of each kernel come from the built library
+(:func:`br_layout`, :func:`tr_layout`).
+
+A key object holds the keys of ``recipients`` recipients, one after
+another on a leading axis: one recipient's as made, several filled in one
+at a time (:meth:`StackedKey.empty_stack`, :meth:`put`). The samples of a
+launch split into ``recipients`` equal runs, run r taking recipient r's
+key, and one kernel launch serves them all (``csrc/blind_rotate.cu``,
+``csrc/trace.cu``: a block's samples are one recipient's); the plain
+versions take each run with its recipient's key.
 """
 
 from __future__ import annotations
@@ -114,6 +123,47 @@ def reference_key_layout(k: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return ref.reshape(3 * n_steps, n, jp * dj, 2, 2).to(torch.int64)
 
 
+class StackedKey:
+    """What the key objects share: the keys of ``recipients`` recipients,
+    one after another on the leading axis of each tensor of ``keys`` (one
+    recipient's for a key object made from one recipient's tensors)."""
+
+    @property
+    def recipients(self) -> int:
+        return self.keys[0].shape[0]
+
+    def empty_stack(self, count: int):
+        """A key object of ``count`` recipients with this key's tables and
+        its key tensors' shapes, the keys themselves not yet filled in
+        (:meth:`put`): a stack is filled one key at a time, so that only
+        one recipient's key lies beside it as it fills."""
+        out = copy.copy(self)
+        out.keys = tuple(torch.empty((count, *k.shape[1:]), dtype=k.dtype, device=k.device)
+                         for k in self.keys)
+        return out
+
+    def put(self, r: int, key) -> None:
+        """Recipient ``r``'s key (one recipient's key object of the same
+        ring, on this stack's device and in its layout) into the stack."""
+        if [tuple(k.shape) for k in key.keys] != [(1, *k.shape[1:]) for k in self.keys]:
+            raise ValueError(f"{self.name}: a key of shapes "
+                             f"{[tuple(k.shape) for k in key.keys]} does not fit the stack")
+        for dst, src in zip(self.keys, key.keys):
+            dst[r].copy_(src[0])
+
+    def runs(self, n_msgs: int, what: str) -> int:
+        """Samples a recipient's run of a launch of ``n_msgs`` samples: the
+        samples split into ``recipients`` equal runs, run r under recipient
+        r's key."""
+        if n_msgs % self.recipients:
+            raise ValueError(f"{what}: {n_msgs} samples do not split into "
+                             f"{self.recipients} recipients' runs")
+        return n_msgs // self.recipients
+
+    def nbytes(self) -> int:
+        return sum(k.numel() * k.element_size() for k in self.keys)
+
+
 def _key_on(key, ntt: Ntt, plain, tensors: tuple[str, ...]):
     """A copy of a key object on the device of ``ntt`` (the same ring's NTT
     of another context): what the key holds is copied as it lies, in its
@@ -134,15 +184,16 @@ def _key_on(key, ntt: Ntt, plain, tensors: tuple[str, ...]):
     return other
 
 
-class BlindRotateKey:
+class BlindRotateKey(StackedKey):
     """A paired bootstrapping key for :func:`blind_rotate`.
 
     bsk / bsk_sh: (3*n_steps, N, d, 2, 2) int64, reference order (the
-    layout of ``tfhe_omr_tpu.core.keygen.DetectionKey.bsk1`` / ``bsk2``).
-    On the CPU both are kept as given. On a card only the kernel's layout
-    is held (:func:`kernel_key_layout`, int32 words for a field below
-    2**31, no companions: the kernel reduces its sums lazily), beside the
-    kernel's tables in its word size.
+    layout of ``tfhe_omr_tpu.core.keygen.DetectionKey.bsk1`` / ``bsk2``),
+    one recipient's. On the CPU both are kept as given. On a card only the
+    kernel's layout is held (:func:`kernel_key_layout`, int32 words for a
+    field below 2**31, no companions: the kernel reduces its sums lazily),
+    beside the kernel's tables in its word size. Either is held as a stack
+    of one recipient's key.
     """
 
     def __init__(self, bsk: torch.Tensor, bsk_sh: torch.Tensor, ntt: Ntt,
@@ -153,11 +204,11 @@ class BlindRotateKey:
         self.n_steps = bsk.shape[0] // 3
         self.plain = make_blind_rotate(ntt.field, ntt, gadget)
         self.on_card = build.device_kind(bsk) == "cuda"
-        self.keys = (bsk, bsk_sh)
+        self.keys = (bsk[None], bsk_sh[None])
         if self.on_card:
             lay = self.layout = br_layout(ntt, gadget)
             self.keys = (kernel_key_layout(bsk, self.n_steps, ntt.n, gadget.d,
-                                           lay.dj, ntt.perm_inv, lay.dtype),)
+                                           lay.dj, ntt.perm_inv, lay.dtype)[None],)
             # the kernel's tables, in its word: per-pass twiddles beside their
             # companions, the psi-power table and the base orders
             self.tw_fwd, self.tw_inv, self.n_inv_sh = kernel_tables(ntt, lay, name)
@@ -171,21 +222,23 @@ class BlindRotateKey:
         return _key_on(self, ntt, make_blind_rotate(ntt.field, ntt, self.gadget),
                        ("tw_fwd", "tw_inv", "mono", "orders"))
 
-    def reference(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(bsk, bsk_sh) in the reference layout and slot order, int64."""
+    def reference(self, r: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """(bsk, bsk_sh) of recipient ``r`` in the reference layout and slot
+        order, int64."""
         if not self.on_card:
-            return self.keys
-        bsk = reference_key_layout(self.keys[0], self.ntt.perm)
+            return tuple(k[r] for k in self.keys)
+        bsk = reference_key_layout(self.keys[0][r], self.ntt.perm)
         return bsk, self.ntt.field.shoup_t(bsk)
-
-    def nbytes(self) -> int:
-        return sum(k.numel() * k.element_size() for k in self.keys)
 
 
 def blind_rotate_plain(acc: torch.Tensor, amounts: torch.Tensor,
                        key: BlindRotateKey) -> torch.Tensor:
-    """acc (M, 2, N), amounts (2*n_steps, M) -> (M, 2, N), plain torch."""
-    out = key.plain(acc.permute(2, 1, 0), amounts, *key.reference())
+    """acc (M, 2, N), amounts (2*n_steps, M) -> (M, 2, N), plain torch,
+    each recipient's run of M with its own key."""
+    per = key.runs(acc.shape[0], "blind_rotate")
+    out = torch.cat([key.plain(acc[r * per:(r + 1) * per].permute(2, 1, 0),
+                               amounts[:, r * per:(r + 1) * per], *key.reference(r))
+                     for r in range(key.recipients)], dim=2)
     return out.permute(2, 1, 0).contiguous()
 
 
@@ -200,13 +253,16 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     """The paired CMUX chain on every sample: acc (M, 2, N) coefficient
     domain, amounts (2*n_steps, M) in [0, 2N) -> (M, 2, N). Any M: the
     kernel serves ``layout.s`` samples per block and masks the rest of the
-    last block.
+    last block. With a stack of R keys, M splits into R equal runs, run r
+    under recipient r's key, in one launch: each run takes blocks of its
+    own and masks the rest of its last one.
 
     With ``stage_clocks``, an int64 tensor of (blocks, len(BR_STAGES)) on
     the card (blocks: :func:`n_blocks` of M and ``key.layout.s``), the
     profiled instantiation of the reference rings runs instead and adds the
     SM clocks that thread 0 of each block spent in each stage of all its
-    steps (:data:`BR_STAGES`) to it; its output is the same. It counts as
+    steps (:data:`BR_STAGES`) to it (blocks: R runs of :func:`n_blocks` of
+    a run with a stack of R keys); its output is the same. It counts as
     ``<key name>_profiled`` in ``build.LAUNCHES``. ``plane_stamps=False``
     leaves out the two stamps of every key plane: "staging" stays 0 and is
     counted in "mac", at less cost to the other stages. The plain path has
@@ -222,13 +278,14 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
         raise ValueError(f"blind_rotate: acc {tuple(acc.shape)}, amounts {tuple(amounts.shape)}")
     if not key.on_card:
         raise ValueError("blind_rotate: the key is not on the card")
+    per_key = key.runs(n_msgs, "blind_rotate")
     acc = acc.contiguous()
     amounts = amounts.contiguous()
     out = torch.empty_like(acc)
     build.require_cuda("blind_rotate", acc, amounts)
     build.require_cuda("blind_rotate", acc, key.keys[0], key.mono, key.tw_fwd,
                        key.tw_inv, key.orders, dtypes=(torch.int64, torch.int32))
-    blocks = n_blocks(n_msgs, key.layout.s)
+    blocks = key.recipients * n_blocks(per_key, key.layout.s)
     if stage_clocks is not None:
         build.require_cuda("blind_rotate", acc, stage_clocks)
         if stage_clocks.shape != (blocks, len(BR_STAGES)):
@@ -241,7 +298,7 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
             key.n_steps, build.ptr(key.keys[0]), build.ptr(key.mono),
             build.ptr(key.orders), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
             key.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
-            blocks, build.stream_of(acc))
+            blocks, build.stream_of(acc), per_key)
     with torch.cuda.device(acc.device):
         if stage_clocks is None:
             rc = lib.omr_blind_rotate(*args)
@@ -274,15 +331,16 @@ def trace_reference_layout(k: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return k[..., perm].permute(0, 3, 1, 2)
 
 
-class TraceKey:
+class TraceKey(StackedKey):
     """The automorphism key-switching keys for :func:`trace`.
 
     trace_k / trace_k_sh: (rounds, N, d, 2) int64, reference order;
-    ``autos`` is ``OmrContext.trace_autos``. On the CPU both are kept as
-    given. On a card only the kernel's layout is held
+    ``autos`` is ``OmrContext.trace_autos``, one recipient's. On the CPU
+    both are kept as given. On a card only the kernel's layout is held
     (:func:`trace_key_layout`, no companions: the kernel sums its products
     lazily), beside the kernel's twiddle tables and the rounds'
-    automorphism multipliers.
+    automorphism multipliers. Either is held as a stack of one
+    recipient's key.
     """
 
     def __init__(self, trace_k: torch.Tensor, trace_k_sh: torch.Tensor,
@@ -294,10 +352,10 @@ class TraceKey:
         self.rounds = len(autos)
         self.plain = make_trace(ntt.field, ntt, gadget, autos)
         self.on_card = build.device_kind(trace_k) == "cuda"
-        self.keys = (trace_k, trace_k_sh)
+        self.keys = (trace_k[None], trace_k_sh[None])
         if self.on_card:
             lay = self.layout = tr_layout(ntt, gadget)
-            self.keys = (trace_key_layout(trace_k, ntt.perm_inv),)
+            self.keys = (trace_key_layout(trace_k, ntt.perm_inv)[None],)
             self.tw_fwd, self.tw_inv, self.n_inv_sh = kernel_tables(ntt, lay, name)
             self.ginv = torch.tensor(auto_multipliers(autos, ntt.n),
                                      dtype=torch.int32, device=trace_k.device)
@@ -308,27 +366,30 @@ class TraceKey:
         return _key_on(self, ntt, make_trace(ntt.field, ntt, self.gadget, autos),
                        ("tw_fwd", "tw_inv", "ginv"))
 
-    def reference(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(trace_k, trace_k_sh) in the reference layout and slot order."""
+    def reference(self, r: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """(trace_k, trace_k_sh) of recipient ``r`` in the reference layout
+        and slot order."""
         if not self.on_card:
-            return self.keys
-        k = trace_reference_layout(self.keys[0], self.ntt.perm)
+            return tuple(k[r] for k in self.keys)
+        k = trace_reference_layout(self.keys[0][r], self.ntt.perm)
         return k, self.ntt.field.shoup_t(k)
-
-    def nbytes(self) -> int:
-        return sum(k.numel() * k.element_size() for k in self.keys)
 
 
 def trace_plain(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
-    """acc (B, 2, N) -> (B, 2, N), plain torch."""
-    out = key.plain(acc.permute(2, 1, 0), *key.reference())
+    """acc (B, 2, N) -> (B, 2, N), plain torch, each recipient's run of B
+    with its own key."""
+    per = key.runs(acc.shape[0], "trace")
+    out = torch.cat([key.plain(acc[r * per:(r + 1) * per].permute(2, 1, 0), *key.reference(r))
+                     for r in range(key.recipients)], dim=2)
     return out.permute(2, 1, 0).contiguous()
 
 
 def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
     """EvalTr on every message: acc (B, 2, N) coefficient domain, already
     multiplied by N^{-1} -> (B, 2, N). Any B: the kernel serves
-    ``layout.s`` messages per block and masks the rest of the last block."""
+    ``layout.s`` messages per block and masks the rest of the last block.
+    With a stack of R keys, B splits into R equal runs, run r under
+    recipient r's key, in one launch."""
     if build.device_kind(acc) == "cpu":
         return trace_plain(acc, key)
     ntt, g = key.ntt, key.gadget
@@ -337,6 +398,7 @@ def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
         raise ValueError(f"trace: acc {tuple(acc.shape)}")
     if not key.on_card:
         raise ValueError("trace: the key is not on the card")
+    per_key = key.runs(n_msgs, "trace")
     acc = acc.contiguous()
     out = torch.empty_like(acc)
     build.require_cuda("trace", acc, key.keys[0], key.tw_fwd, key.tw_inv, key.ginv,
@@ -349,7 +411,7 @@ def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
             build.ptr(acc), build.ptr(out), n_msgs, key.rounds, build.ptr(key.ginv),
             build.ptr(key.keys[0]), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
             ntt.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
-            build.stream_of(acc),
+            build.stream_of(acc), per_key,
         )
     build.check(lib, rc, key.name)
     build.LAUNCHES[key.name] += 1

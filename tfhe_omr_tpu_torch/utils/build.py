@@ -48,18 +48,18 @@ _I32 = ctypes.c_int
 _U64 = ctypes.c_uint64
 _NTT_ARGS = [_P, _P, _I64, _P, _P, _U64, _U64, _I32, _I64, _I32, _I32, _P]
 _BR_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U64,
-            _I32, _I64, _I32, _I32, _I32, _P]
+            _I32, _I64, _I32, _I32, _I32, _P, _I64]
 _TRACE_ARGS = [_P, _P, _I64, _I32, _P, _P, _P, _P, _U64, _U64,
-               _I32, _I64, _I32, _I32, _P]
+               _I32, _I64, _I32, _I32, _P, _I64]
 _PROBE_CHAIN_ARGS = [_I32, _I32, _I32, _P, _P, _P, _I64, _I32, _I32, _P]
 _PROBE_CHAIN_PLAN_ARGS = [_I64, _I32, _I32, _I32, _P]
 _PROBE_MAC_ARGS = [_I32, _P, _P, _P, _I64, _I32, _P]
 _PROBE_I8DOT_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P]
 _PROBE_I8DOT_PLAN_ARGS = [_I64, _I32, _I32, _I32, _I32, _I32, _P]
-_ENCODE_MAC_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P]
+_ENCODE_MAC_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P, _I32]
 _ENCODE_PAYLOAD_ARGS = [_P, _P, _I64, _I64, _P, _I64, _I32, _I32, _I32, _I32, _I64, _I64,
                         _I32, _P]
-_ENCODE_INDEX_ARGS = [_P, _I64, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I32, _P]
+_ENCODE_INDEX_ARGS = [_P, _I64, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I32, _P, _I64]
 
 _library = None
 _host_library = None

@@ -124,7 +124,9 @@ timed runs for the probes,
 8 are processes of their own: ``ranks`` is what rank 0's record counts),
 ``launches_per_detect`` one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
 ``ms_main_path`` and ``bound_ms`` at the main path's; K1-K5 ``golden_launches``
-of phase 10, K1 and K2 ``profiled`` with the profiled instantiation's
+of phase 10, K1 and K2 ``mono_table`` (where the monomial stage reads its
+psi-power table: "shared" memory or the read-only "cache", as the library's
+layout query reports it) and ``profiled`` with the profiled instantiation's
 launches, times and stage split, with stamps at every key plane, and
 ``per_pass`` the same with one stamp a digit pass around the MAC and the
 key staging; probe_chain ``runs`` with each C1 run's time, from a CUDA
@@ -1153,6 +1155,7 @@ def main() -> int:
     from tfhe_omr_tpu_torch.core.context import OmrContext
     from tfhe_omr_tpu_torch.core.params import OmrParameters
     from tfhe_omr_tpu_torch.core.sender import ClueBatch
+    from tfhe_omr_tpu_torch.ops.fused import br_layout
     from tfhe_omr_tpu_torch.utils import build
 
     gpu = gpu_line()
@@ -1277,7 +1280,11 @@ def main() -> int:
             "golden_launches": golden_launches.get(counter, 0),
         })
         if counter in ("blind_rotate1", "blind_rotate2"):
-            p = profiled[int(counter[-1])]
+            level = int(counter[-1])
+            lay = br_layout(*((ctx.ntt1, ctx.gadget_br1) if level == 1
+                              else (ctx.ntt2, ctx.gadget_br2)))
+            kernels[-1]["mono_table"] = "shared" if lay.mono_shared else "cache"
+            p = profiled[level]
             kernels[-1]["profiled"] = {
                 "source": "tfhe_omr_tpu_torch/csrc/blind_rotate_profiled.cu",
                 "launches": profiled_launches[f"{counter}_profiled"], "max_abs_err": 0,

@@ -118,6 +118,47 @@ def test_blind_rotate_kernel_on_host_matches_plain(host, preset, level, m):
                        fused.blind_rotate_plain(acc, amounts, key))
 
 
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_kernel_extreme_amounts_on_host(host, preset, level):
+    """Every rotation 0 or 2N - 1, so that a0 + a1 wraps past 2N (the kernel
+    masks where the plain version takes ``% 2N``), extreme coefficients:
+    the monomial table read from shared memory (the default first level,
+    both tiny levels) and through the cache (the default second level)."""
+    ctx = _ctx(preset)
+    f, ntt, g = (ctx.f1, ctx.ntt1, ctx.gadget_br1) if level == 1 else (
+        ctx.f2, ctx.ntt2, ctx.gadget_br2)
+    n_lwe, m = 6, 6
+    gen = torch.Generator().manual_seed(40 + level)
+    bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+    key = fused.BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, f"blind_rotate{level}")
+    assert key.layout.mono_shared == (preset == "tiny" or level == 1)
+    two_n = 2 * ntt.n
+    amounts = _uniform(gen, two_n, (n_lwe, m))
+    amounts[:] = torch.where(amounts % 2 == 0, 0, two_n - 1)
+    amounts[:, 0] = two_n - 1
+    amounts[:, 1] = 0
+    acc = _uniform(gen, f.q, (m, 2, ntt.n))
+    acc[2] = f.q - 1
+    acc[3] = 0
+    assert torch.equal(fused.blind_rotate(acc, amounts, key),
+                       fused.blind_rotate_plain(acc, amounts, key))
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_layout_reports_where_the_monomial_table_lives(host, preset, level):
+    """The library reports the psi-power table in shared memory where the
+    configuration has room for it beside the rest (K1: 209,920 + 8,192
+    bytes of the 232,448 a block may have; the tiny presets), and read
+    through the cache where it has not (K2: 202,752 + 32,768 bytes); the
+    trace has no such table."""
+    ctx = _ctx(preset)
+    ntt, g = (ctx.ntt1, ctx.gadget_br1) if level == 1 else (ctx.ntt2, ctx.gadget_br2)
+    assert fused.br_layout(ntt, g).mono_shared == (preset == "tiny" or level == 1)
+    assert not fused.tr_layout(ctx.ntt2, ctx.gadget_trace).mono_shared
+
+
 def _stack(keys):
     stack = keys[0].empty_stack(len(keys))
     for r, key in enumerate(keys):

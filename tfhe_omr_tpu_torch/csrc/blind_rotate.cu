@@ -43,14 +43,31 @@
 // barrier guards the ring.
 //
 // Shared memory (words): acc S x 2 x NP | digits S x 2 DJ x NP | forward
-// twiddles, each beside its companion | ring NST x N, with NP = N + N / 32
-// (one pad word per 32, per 16 at 64 bits, against bank conflicts). The
-// inverse twiddles are read through the read-only cache. NST is a power
-// of two: the ring index is a mask (a 64-bit `%` there cost 10-25 %).
+// twiddles, each beside its companion | ring NST x N | the monomial table
+// 2N, where it fits, with NP = N + N / 32 (one pad word per 32, per 16 at
+// 64 bits, against bank conflicts). The inverse twiddles are read through
+// the read-only cache. NST is a power of two: the ring index is a mask (a
+// 64-bit `%` there cost 10-25 %).
 //   first level:  S = 4, T = 512, DJ = 4 (all digits in one pass), RLOG = 5
-//                 (two passes), NST = 8: 209,920 bytes, 5 barriers a step;
+//                 (two passes), NST = 8: 209,920 bytes and the table's
+//                 8,192, 218,112 bytes, 5 barriers a step;
 //   second level: S = 1, T = 512, DJ = 2, RLOG = 4 (three passes), NST = 4:
-//                 202,752 bytes, 15 barriers a step.
+//                 202,752 bytes, 15 barriers a step; its table (4096 64-bit
+//                 words, 32 KB) does not fit beside them in the 232,448
+//                 bytes a block may have, and stays in device memory.
+// The table: each step a thread looks up 3 rows x S samples x 2 slots
+// words at (a_t o_k) mod 2N, indices scattered over the whole table. From
+// the read-only cache a warp's gather is served a 128-byte line at a time
+// (about 25 of the table's 64 lines), from shared memory a bank conflict
+// at a time (3-4 passes). The block copies the table in beside the forward
+// twiddles; BrConfig::MONO_SHARED says whether it has room, and where it
+// has not the kernel compiles to what it was without it. At the first
+// level (7168 x 256 steps, each build in turn on one card, NVIDIA H100
+// 80GB HBM3, 700 W): 98.2-98.9 ms through the cache, 94.4 ms from shared
+// memory with the step's amounts all loaded before the first lookup; 95.3
+// ms with them loaded a sample at a time (30 spill loads in the step
+// loop), 97.9 ms with them staged in shared memory 256 steps at a time,
+// 101.9 ms with them loaded at the top of the step.
 // S at the second level: the six row accumulators of a sample are
 // 6 x 2048 x 8 = 96 KB of registers, beside its 32 KB accumulator and the
 // digit buffer in shared memory, so one SM holds one sample's state; at the
@@ -118,14 +135,14 @@
 #include "blind_rotate.cuh"
 
 // The layout constants of the instantiation for (log_n, q, d, log_b):
-// out = {S, DJ, RLOG, word bytes, TW_FWD, TW_INV}; non-zero if there is none.
-// The typedefs of blind_rotate.cuh are the only table of them: ops/fused.py
-// br_layout asks here when it lays a key out.
+// out = {S, DJ, RLOG, word bytes, TW_FWD, TW_INV, MONO_SHARED}; non-zero if
+// there is none. The typedefs of blind_rotate.cuh are the only table of
+// them: ops/fused.py br_layout asks here when it lays a key out.
 extern "C" int omr_blind_rotate_config(int log_n, int64_t q, int d, int log_b, int* out) {
 #define OMR_BR_TRY(C)                                                        \
   if (log_n == C::LOG_N && (u64)q == C::F::Q && d == C::D && log_b == C::LOG_B) { \
     out[0] = C::S; out[1] = C::DJ; out[2] = C::RLOG; out[3] = (int)sizeof(C::W); \
-    out[4] = C::TW_FWD; out[5] = C::TW_INV;                                   \
+    out[4] = C::TW_FWD; out[5] = C::TW_INV; out[6] = C::MONO_SHARED;          \
     return 0;                                                                 \
   }
   OMR_BR_TRY(BrL1)

@@ -46,12 +46,16 @@ struct BrConfig : NttPlan<W_, LOG_N_, Q_, RLOG_> {
   // the running row before it reduces
   static constexpr int MAC_TERM_BITS = ceil_log2(2 * DJ * Plan::NTT_GROWTH + 1);
 
-  // shared memory map, in words
+  // shared memory map, in words; the monomial stage's table of psi powers
+  // (2N words) goes last, where it fits in what a block may use, and is
+  // otherwise read through the read-only cache
   static constexpr int OFF_ACC = 0;
   static constexpr int OFF_DIG = OFF_ACC + S * 2 * NP;
   static constexpr int OFF_TWF = OFF_DIG + S * DJ * 2 * NP;
   static constexpr int OFF_RING = (OFF_TWF + 2 * TW_FWD + 3) / 4 * 4;  // 16-byte aligned
-  static constexpr int SMEM_WORDS = OFF_RING + NST * N;
+  static constexpr int OFF_MONO = OFF_RING + NST * N;
+  static constexpr bool MONO_SHARED = (OFF_MONO + 2 * N) * (int)sizeof(W) <= SMEM_BLOCK_MAX;
+  static constexpr int SMEM_WORDS = OFF_MONO + (MONO_SHARED ? 2 * N : 0);
   static constexpr size_t SMEM_BYTES = (size_t)SMEM_WORDS * sizeof(W);
 
   // Digit j of the balanced signed decomposition of round(x B^D / Q),
@@ -192,7 +196,8 @@ struct BrAccumulate {
 // key (n_msgs / per_key, n_steps, D/DJ, 3, DJ, 2, 2, N) words in the base
 // slot order: samples k per_key .. k per_key + per_key - 1 take key k (one
 // key: per_key = n_msgs);
-// mono (2N) words psi^e - 1; orders (N) int32 base orders;
+// mono (2N) words psi^e - 1 (copied to shared memory where the
+// configuration has room, C::MONO_SHARED); orders (N) int32 base orders;
 // tw_fwd / tw_inv: per-pass twiddles, each followed by its companion.
 template <class C>
 __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
@@ -247,6 +252,8 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
   for (int i = 0; i < NST - 2; ++i) stage_next();
 
   for (int k = tid; k < 2 * C::TW_FWD; k += C::T) sm[C::OFF_TWF + k] = tw_fwd[k];
+  if constexpr (C::MONO_SHARED)
+    for (int k = tid; k < 2 * N; k += C::T) sm[C::OFF_MONO + k] = mono[k];
   for (int k = tid; k < S * 2 * N; k += C::T) {
     const int s = k / (2 * N);
     const int r = k % (2 * N);
@@ -347,22 +354,35 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
     }
 
     // row t times NTT(X^{a_t}) - 1 (a lookup in the psi-power table at
-    // a_t * order mod 2N), summed over the rows, into the digit buffer
+    // a_t * order mod 2N, a_2 = a_0 + a_1), summed over the rows, into the
+    // digit buffer. The lookups are gathers at scattered indices: from
+    // shared memory one a bank conflict, through the cache one a line the
+    // warp touches. The step's amounts are all loaded before the first
+    // lookup: loaded a sample at a time beside the shared-memory lookups,
+    // they left the first level's step loop 30 spill loads.
+    int a0[S], a1[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       // a block of one sample always holds a valid one
       const bool valid = S == 1 || s < n_valid;
-      const int a0 = valid ? (int)amounts[(long long)(2 * step) * n_msgs + msg0 + s] : 0;
-      const int a1 = valid ? (int)amounts[(long long)(2 * step + 1) * n_msgs + msg0 + s] : 0;
-      const int amt[3] = {a0, a1, a0 + a1};
+      a0[s] = valid ? (int)amounts[(long long)(2 * step) * n_msgs + msg0 + s] : 0;
+      a1[s] = valid ? (int)amounts[(long long)(2 * step + 1) * n_msgs + msg0 + s] : 0;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           WideT t0 = Wide::from(0), t1 = Wide::from(0);
+          const int i0 = a0[s] * ord[g][v], i1 = a1[s] * ord[g][v];
+          const int idx[3] = {i0, i1, i0 + i1};
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
-            const W m = __ldg(mono + ((amt[r] * ord[g][v]) & TWO_N_MASK));
+            const int e = idx[r] & TWO_N_MASK;
+            W m;
+            if constexpr (C::MONO_SHARED) m = sm[C::OFF_MONO + e];
+            else m = __ldg(mono + e);
             Wide::mac(t0, p[g][s][r][0][v], m);
             Wide::mac(t1, p[g][s][r][1][v], m);
           }

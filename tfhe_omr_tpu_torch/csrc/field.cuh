@@ -189,7 +189,9 @@ struct WideAcc<F, u64> {
   kernel<<<grid, block, smem, (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #endif
 
-// Dynamic shared memory above 48 KB must be opted into per kernel.
+// Dynamic shared memory above 48 KB must be opted into per kernel, up to
+// what one block may have on the H100.
+constexpr int SMEM_BLOCK_MAX = 232448;
 template <typename K>
 static cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -324,7 +324,6 @@ probe_mac_kernel(const int* __restrict__ x, const int* __restrict__ y, int* __re
 // unit); C's rows are n rounded up to 4 words, so they are 16-byte strides.
 constexpr int DOT_BM = 64, DOT_ATOM = 128, DOT_RING = 4, DOT_THREADS = 128;
 constexpr int DOT_C_BOX = DOT_BM * 128;  // bytes of a box of C: 64 rows x 32 words
-constexpr int DOT_SMEM_MAX = 232448;      // the dynamic shared memory a block may have
 constexpr int PACK_THREADS = 256;
 
 static __host__ __device__ constexpr int dot_stage_bytes(int n_tile) {
@@ -645,7 +644,7 @@ extern "C" int omr_probe_i8dot(const void* a, const void* b, void* c, void* scra
       reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
   const DotPlan p = dot_plan(g, m, k, n, rounds, sms);
-  if (p.blocks > INT32_MAX || g > INT32_MAX || p.smem > DOT_SMEM_MAX)
+  if (p.blocks > INT32_MAX || g > INT32_MAX || p.smem > SMEM_BLOCK_MAX)
     return (int)cudaErrorInvalidValue;
   signed char* bt = static_cast<signed char*>(scratch);
   signed char* ap = k % 16 ? bt + p.bt_bytes : nullptr;

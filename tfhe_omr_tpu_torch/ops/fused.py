@@ -52,7 +52,9 @@ class BrLayout:
     """Layout constants of one instantiation of ``csrc/blind_rotate.cu`` or
     ``csrc/trace.cu``: word size, samples per block, digits per NTT pass,
     radix-2 stages per NTT pass, entries of the regrouped forward / inverse
-    twiddle tables."""
+    twiddle tables; and, for a blind rotation, whether its monomial stage
+    reads the psi-power table from shared memory (where the configuration
+    has room beside the rest) rather than through the read-only cache."""
 
     word_bits: int
     s: int
@@ -60,6 +62,7 @@ class BrLayout:
     rlog: int
     tw_fwd: int
     tw_inv: int
+    mono_shared: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -68,12 +71,12 @@ class BrLayout:
 
 def _layout(config, what: str, ntt: Ntt, gadget: SignedGadget) -> BrLayout:
     sig = (ntt.log_n, ntt.field.q, gadget.d, gadget.log_b)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()  # the trace's query fills the first six
     if config(*sig, out):
         raise ValueError(
             f"no {what} kernel is instantiated for (log N, q, d, log B) = {sig}")
-    s, dj, rlog, word_bytes, tw_fwd, tw_inv = out
-    return BrLayout(8 * word_bytes, s, dj, rlog, tw_fwd, tw_inv)
+    s, dj, rlog, word_bytes, tw_fwd, tw_inv, mono_shared = out
+    return BrLayout(8 * word_bytes, s, dj, rlog, tw_fwd, tw_inv, bool(mono_shared))
 
 
 def br_layout(ntt: Ntt, gadget: SignedGadget) -> BrLayout:

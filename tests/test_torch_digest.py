@@ -11,7 +11,8 @@
   encoders read no detection key, so the JAX detectors hold none; the
   default-ring one takes its context from a pack with the reduced LWE
   dimensions of tests/test_torch_bootstrap.py.
-* The device plaintext builders against the host builders (the twin of
+* The port's plaintext builders against the JAX package's host builders
+  (the twin of
   tests/test_omr_roundtrip.py::test_device_encoders_match_host_plaintext_path).
 * ``sample_weights`` equal to the JAX one.
 """
@@ -138,19 +139,20 @@ def test_encoders_match_jax(detectors):
 
 
 def test_device_builders_match_host_builders(detectors):
-    """The scatter-built plaintexts and the encoders built on them equal the
-    host builders' plaintexts and a chunked encode of those."""
-    _preset, port, _jax_det = detectors
+    """The port's scatter-built plaintexts equal the JAX package's host
+    builders' on the same bucket draws and weights, and the port's encoders
+    equal a chunked sum of those plaintexts through ``_encode_chunk``."""
+    _preset, port, jax_det = detectors
     params = port.ctx.params
     q2 = params.q2
     count, chunk = 24, 16
     rp = RetrievalParams.for_params(params, count, 4)
+    jrp = JaxRetrievalParams(**rp.__dict__)
     rng = np.random.default_rng(22)
     pert = torch.as_tensor(
         rng.integers(0, q2, size=(count, 2, params.n2), dtype=np.int64))
-    fwd = port.ctx.ntt2.fwd_last
 
-    host = port.build_index_plaintexts(rp, count, np.random.default_rng(7))
+    host = jax_det.build_index_plaintexts(jrp, count, np.random.default_rng(7))
     buckets = np.random.default_rng(7).integers(
         0, rp.bucket_count_per_segment, size=(count, rp.segment_per_cipher),
         dtype=np.int64)
@@ -167,9 +169,9 @@ def test_device_builders_match_host_builders(detectors):
     acc = torch.zeros_like(digest)
     for s in range(0, count, chunk):
         c = min(chunk, count - s)
-        plain = port.build_index_plaintexts(rp, c, rng_b, start_index=s)
-        acc = port._encode_chunk(pert[s:s + c], torch.as_tensor(plain)[None],
-                                 acc[None], fwd)[0]
+        rows = jax_det.build_index_plaintexts(jrp, c, rng_b, start_index=s)
+        acc = port._encode_chunk(pert[s:s + c], torch.as_tensor(rows)[None],
+                                 acc[None], False)[0]
     assert torch.equal(digest, acc)
 
     payloads = random_payloads(rng, count, rp.payload_length)
@@ -181,17 +183,17 @@ def test_device_builders_match_host_builders(detectors):
                                rp.polynomial_size, rp.index_modulus, q2)
     assert dev.shape == (rp.cmb_cipher_count, count, rp.polynomial_size)
     for k in range(rp.cmb_cipher_count):
-        host = port.build_payload_plaintexts(rp, payloads, w_all[k])
+        host = np.asarray(jax_det.build_payload_plaintexts(jrp, payloads, w_all[k]))
         assert np.array_equal(dev[k].numpy(), host), k
         acc = torch.zeros_like(digests[k])
         for s in range(0, count, chunk):
-            plain = torch.as_tensor(host[s:s + chunk])
-            acc = port._encode_chunk(pert[s:s + chunk], plain[None], acc[None], fwd)[0]
+            rows = torch.as_tensor(host[s:s + chunk])
+            acc = port._encode_chunk(pert[s:s + chunk], rows[None], acc[None], False)[0]
         assert torch.equal(digests[k], acc), k
     # every digest of a chunk at once: the same sums
     acc = torch.zeros_like(digests)
     for s in range(0, count, chunk):
-        acc = port._encode_chunk(pert[s:s + chunk], dev[:, s:s + chunk], acc, fwd)
+        acc = port._encode_chunk(pert[s:s + chunk], dev[:, s:s + chunk], acc, False)
     assert torch.equal(digests, acc)
 
 
@@ -211,7 +213,7 @@ def test_every_chunk_passes_through_encode_chunk(detectors, monkeypatch):
     pay = port.encode_pertinent_payloads(rp, pert, payloads, 9, chunk=chunk)
     assert bool(idx.any()) and bool(pay.any())
     monkeypatch.setattr(Detector, "_encode_chunk",
-                        lambda self, pert, plain, acc, fwd: acc)
+                        lambda self, pert, rows, acc, plain: acc)
     idx = port.encode_pertinent_indices(rp, pert, np.random.default_rng(8), chunk=chunk)
     pay = port.encode_pertinent_payloads(rp, pert, payloads, 9, chunk=chunk)
     assert idx.shape == (2, params.n2) and not bool(idx.any())

@@ -11,6 +11,7 @@ every time, shows only on a card (``tests/test_torch_cuda.py``).
 """
 
 import contextlib
+import re
 import types
 
 import numpy as np
@@ -351,6 +352,91 @@ def test_encoders_on_host_match_plain(host, tiny_detector):
     assert torch.equal(pay, det.encode_pertinent_payloads(
         rp, pert, payloads, 7, chunk=chunk, plain=True))
     assert build.LAUNCHES["encode_mac"] == 3 * chunks
+
+
+def _wrapper_and_plain(wrapper):
+    """(call(plain), the plain version's output) of one kernel wrapper at
+    the tiny preset, its tensors and keys made while the wrappers see a
+    card (the keys in the kernels' layout)."""
+    ctx = _ctx("tiny")
+    f, n = ctx.f2, ctx.params.n2
+    gen = torch.Generator().manual_seed(60)
+    if wrapper in ("fwd_last", "inv_last"):
+        x = _uniform(gen, f.q, (3, n))
+        return (lambda plain: getattr(ctx.ntt2, wrapper)(x, plain=plain),
+                getattr(ctx.ntt2, f"{wrapper}_plain")(x))
+    if wrapper == "blind_rotate":
+        n_lwe, g = 4, ctx.gadget_br2
+        bsk = _uniform(gen, f.q, (3 * n_lwe // 2, n, g.d, 2, 2))
+        key = fused.BlindRotateKey(bsk, f.shoup_t(bsk), ctx.ntt2, g, "blind_rotate2")
+        acc = _uniform(gen, f.q, (2, 2, n))
+        amounts = _uniform(gen, 2 * n, (n_lwe, 2))
+        assert key.on_card
+        return (lambda plain: fused.blind_rotate(acc, amounts, key, plain=plain),
+                fused.blind_rotate_plain(acc, amounts, key))
+    if wrapper == "trace":
+        g, autos = ctx.gadget_trace, ctx.trace_autos[:2]
+        tk = _uniform(gen, f.q, (len(autos), n, g.d, 2))
+        key = fused.TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, autos)
+        acc = _uniform(gen, f.q, (2, 2, n))
+        assert key.on_card
+        return lambda plain: fused.trace(acc, key, plain=plain), fused.trace_plain(acc, key)
+    if wrapper == "encode_mac":
+        pert, pn, acc = (_uniform(gen, f.q, shape) for shape in ((3, 2, n), (2, 3, n), (2, 2, n)))
+        return (lambda plain: encode.encode_mac(f, pert, pn, acc, plain=plain),
+                encode.encode_mac_plain(f, pert, pn, acc))
+    rp = RetrievalParams.for_params(ctx.params, *ENCODE_BOARD)
+    args = (rp.polynomial_size, rp.index_modulus, ctx.params.q2)
+    lo, rows = 3, 5
+    if wrapper == "payload_plaintexts":
+        weights = torch.as_tensor(payload_weights(rp, 77, ENCODE_BOARD[0]))[:, :, lo:lo + rows]
+        payloads = torch.randint(0, 256, (rows, rp.payload_length), generator=gen)
+        return (lambda plain: encode.payload_plaintexts(payloads, weights, *args, plain=plain),
+                encode.payload_plain_device(payloads, weights, *args))
+    assert wrapper == "index_plaintexts"
+    base = torch.as_tensor(draw_index_buckets(rp, rows, np.random.default_rng(60)))
+    nd = rp.index_slots_per_bucket
+    return (lambda plain: encode.index_plaintexts(base, lo, nd, *args, plain=plain),
+            encode.index_poly_device(base, torch.arange(rows) + lo, nd, *args))
+
+
+@pytest.mark.parametrize("wrapper", ["fwd_last", "inv_last", "blind_rotate", "trace",
+                                     "encode_mac", "payload_plaintexts", "index_plaintexts"])
+def test_every_wrapper_takes_plain(host, wrapper):
+    """On a card's tensors (the host build standing in for the card)
+    ``plain=True`` gives the plain version's output bit for bit and
+    launches nothing; ``plain=False`` launches the kernel once, to the same
+    words: the flag alone chooses."""
+    call, want = _wrapper_and_plain(wrapper)
+    launched = sum(build.LAUNCHES.values())
+    assert torch.equal(call(True), want)
+    assert sum(build.LAUNCHES.values()) == launched
+    assert torch.equal(call(False), want)
+    assert sum(build.LAUNCHES.values()) == launched + 1
+
+
+# what choosing between a kernel and its plain version anywhere but
+# utils/build.py runs_plain looks like, and where it may not appear
+CHOICE_PATTERNS = {
+    "device_kind_is_cpu": (r'(device_kind\([^)]*\)|\bkind)\s*==\s*"cpu"',
+                           lambda rel: rel != "utils/build.py"),
+    "plain_version_if_plain": (r"_plain if plain", lambda rel: rel.startswith("core/")),
+    "function_identity": (r"\bfwd\w* ==", lambda rel: True),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(CHOICE_PATTERNS))
+def test_kernel_or_plain_is_chosen_in_one_place(rule):
+    """Every wrapper asks ``build.runs_plain``; no module of the package
+    picks a plain function or compares functions to decide."""
+    pattern, applies = CHOICE_PATTERNS[rule]
+    found = []
+    for path in sorted(build.PACKAGE_DIR.rglob("*.py")):
+        rel = path.relative_to(build.PACKAGE_DIR).as_posix()
+        if applies(rel):
+            found += [f"{rel}:{i}" for i, line in enumerate(path.read_text().splitlines(), 1)
+                      if re.search(pattern, line)]
+    assert not found, found
 
 
 @pytest.mark.parametrize("kernel", ["blind_rotate", "trace", "ntt", "encode_mac"])

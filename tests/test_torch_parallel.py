@@ -144,7 +144,7 @@ def test_sharded_encode_chunk_matches_single_and_jax(tiny, n):
     zero = torch.zeros((2, 2, single.shape[2]), dtype=torch.int64)
     # two digests at once: the JAX chunk's plaintexts and the same reversed
     polys = torch.stack([torch.as_tensor(plain), torch.as_tensor(plain).flip(0)])
-    one = det._encode_chunk(single, polys, zero, det._fwd(False))
+    one = det._encode_chunk(single, polys, zero, False)
     got = sharded.encode_chunk(single, polys)
     assert torch.equal(got, one)
     np.testing.assert_array_equal(got[0].numpy(), want["chunk"])

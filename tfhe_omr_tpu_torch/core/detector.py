@@ -70,14 +70,7 @@ from tfhe_omr_tpu_torch.ops.encode import (
     index_plaintexts,
     payload_plaintexts,
 )
-from tfhe_omr_tpu_torch.ops.fused import (
-    BlindRotateKey,
-    TraceKey,
-    blind_rotate,
-    blind_rotate_plain,
-    trace,
-    trace_plain,
-)
+from tfhe_omr_tpu_torch.ops.fused import BlindRotateKey, TraceKey, blind_rotate, trace
 from tfhe_omr_tpu_torch.utils import build
 from tfhe_omr_tpu_torch.utils.build import resolve_device
 from tfhe_omr_tpu_torch.utils.spans import span, spanned
@@ -219,8 +212,7 @@ class Detector:
         amounts1 = a_ext.reshape(bsz * self._c, self._n0).T.repeat(1, self.recipients)
         b1 = clue_b7.reshape(bsz * self._c)
         acc = init_accumulator(self.lut1, b1, n1).permute(2, 1, 0).repeat(self.recipients, 1, 1)
-        br = blind_rotate_plain if plain else blind_rotate
-        acc = br(acc, amounts1, self.br1)
+        acc = blind_rotate(acc, amounts1, self.br1, plain=plain)
         # sum the 7 per-clue results (``detector.rs:556``)
         acc = f1.mod_sum(acc.reshape(self.recipients * bsz, self._c, 2, n1), dim=1)
         a_vec, b0 = extract_constant_lwe(f1, acc.permute(2, 1, 0))
@@ -237,8 +229,7 @@ class Detector:
         (R B, 2, N2)."""
         acc2 = init_accumulator(self.lut2, ms_b, self.ctx.params.n2)
         acc2 = acc2.permute(2, 1, 0)  # (B, 2, N2)
-        br = blind_rotate_plain if plain else blind_rotate
-        return br(acc2, ms_a.T.contiguous(), self.br2)
+        return blind_rotate(acc2, ms_a.T.contiguous(), self.br2, plain=plain)
 
     @spanned("detect.stage3")
     def stage3(self, acc2: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -246,9 +237,7 @@ class Detector:
         (``detector.rs:626-639``) -> (R B, 2, N2)."""
         f2 = self.ctx.f2
         acc2 = f2.mul_shoup(acc2, self.n2_inv, self.n2_inv_sh)
-        if plain:
-            return self.ctx.ntt2.fwd_last_plain(trace_plain(acc2, self.tr))
-        return self.ctx.ntt2.fwd_last(trace(acc2, self.tr))
+        return self.ctx.ntt2.fwd_last(trace(acc2, self.tr, plain=plain), plain=plain)
 
     # --------------------------------------------------------------- detect
     def _on_device(self, x) -> torch.Tensor:
@@ -332,20 +321,22 @@ class Detector:
         return warm_encode([self], retrieval_params, [total], chunk)[0]
 
     # ------------------------------------------------------- digest encoder
-    def _encode_chunk(self, pert: torch.Tensor, plain: torch.Tensor,
-                      acc: torch.Tensor, fwd) -> torch.Tensor:
-        """acc + sum over the chunk's messages of pert * NTT(plain), mod q2,
+    def _encode_chunk(self, pert: torch.Tensor, rows: torch.Tensor,
+                      acc: torch.Tensor, plain: bool) -> torch.Tensor:
+        """acc + sum over the chunk's messages of pert * NTT(rows), mod q2,
         for every digest of the chunk: pert (B, 2, N2) NTT-domain pertinency
-        cts; plain (K, B, N2) the plaintext polys of K digests; acc (K, 2,
-        N2). ``fwd`` is the forward NTT of :meth:`_fwd`: with its plain
-        version the multiply-accumulate runs plain too. Every chunk of both
-        encoders passes through here. Counterpart of ``encode_chunk``
-        (``detector.rs:256-337``)."""
-        return encode_mac(self.ctx.f2, pert, fwd(plain), acc,
-                          plain=fwd == self.ctx.ntt2.fwd_last_plain)
-
-    def _fwd(self, plain: bool):
-        return self.ctx.ntt2.fwd_last_plain if plain else self._fwd_held
+        cts; rows (K, B, N2) the plaintext polys of K digests; acc (K, 2,
+        N2); each with a leading axis of R recipients where the encoders
+        run over several. With ``plain`` the plain NTT and
+        multiply-accumulate run (on any device); on the kernel path on a
+        card the NTT images go into the second of :meth:`_chunk_buffers`.
+        Every chunk of both encoders passes through here. Counterpart of
+        ``encode_chunk`` (``detector.rs:256-337``)."""
+        out = None
+        if not build.runs_plain(rows, plain):
+            out = self._chunk_buffers(rows.numel())[1][:rows.numel()]
+        pn = self.ctx.ntt2.fwd_last(rows, out=out, plain=plain)
+        return encode_mac(self.ctx.f2, pert, pn, acc, plain=plain)
 
     def _chunk_buffers(self, words: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Two int64 buffers of at least ``words`` on the detector's card,
@@ -361,64 +352,26 @@ class Detector:
                                       for _ in range(2))
         return self._chunk_words
 
-    def _fwd_held(self, x: torch.Tensor) -> torch.Tensor:
-        """The q2 forward NTT of a chunk's plaintext rows, on a card into
-        the second of :meth:`_chunk_buffers`."""
-        if build.device_kind(x) == "cpu":
-            return self.ctx.ntt2.fwd_last(x)
-        return self.ctx.ntt2.fwd_last(x, out=self._chunk_buffers(x.numel())[1][:x.numel()])
-
-    def _plain_buffer(self, words: int, plain: bool, like: torch.Tensor):
-        """Where a chunk's plaintext rows are built: the first of
-        :meth:`_chunk_buffers` on the kernel path on a card, else anew."""
-        if plain or build.device_kind(like) == "cpu":
-            return None
-        return self._chunk_buffers(words)[0]
-
-    def build_index_plaintexts(
-        self,
-        retrieval_params: RetrievalParams,
-        count: int,
-        rng: np.random.Generator,
-        start_index: int = 0,
-    ) -> np.ndarray:
-        """Host: per-message index plaintext polys (count, N2), centred mod q
-        (the host twin of :func:`~tfhe_omr_tpu_torch.ops.encode.index_poly_device`,
-        same bucket draws).
-
-        For each message and each segment in the ciphertext: pick a random
-        bucket, write the base-p digits of the message index (LSB first) into
-        the bucket's index slots and 1 into its flag slot
-        (counterpart of ``detector.rs:271-323``).
-        """
-        rp = retrieval_params
-        q = self.ctx.f2.q
-        p = rp.index_modulus
-        half_p = (p + 1) >> 1
-        n2 = rp.polynomial_size
-        spb = rp.slots_per_bucket
-        sps = rp.slots_per_segment
-        segs = rp.segment_per_cipher
-        nd = rp.index_slots_per_bucket
-
-        idx = np.arange(start_index, start_index + count, dtype=np.int64)
-        buckets = rng.integers(
-            0, rp.bucket_count_per_segment, size=(count, segs), dtype=np.int64
-        )
-        base_addr = np.arange(segs, dtype=np.int64)[None, :] * sps + buckets * spb
-        polys = np.zeros((count, n2), dtype=np.int64)
-        rows = np.arange(count)[:, None]
-        v = idx.copy()
-        digs = []
-        for _ in range(nd):
-            digs.append(v % p)
-            v //= p
-        for k in range(nd):
-            dv = digs[k]
-            centred = np.where(dv < half_p, dv, q - p + dv)
-            polys[rows, base_addr + k] = centred[:, None]
-        polys[rows, base_addr + nd] = 1  # flag slot
-        return polys
+    def _encode_rows(self, pert, kct: int, chunk: int, plain: bool,
+                     rows_of) -> torch.Tensor:
+        """The one chunk loop of both encoders: ``pert`` (R, rows, 2, N2)
+        -> (R, kct, 2, N2), each chunk's plaintext rows of every digest from
+        ``rows_of(s, e, out)`` (the messages ``s .. e``, written into the
+        front of ``out`` where it is a buffer) and summed by
+        :meth:`_encode_chunk`. On the kernel path on a card the rows go into
+        the first of :meth:`_chunk_buffers`; else they are made anew."""
+        pert = self._on_device(pert).contiguous()
+        recipients, rows, _, n2 = pert.shape
+        acc = torch.zeros((recipients, kct, 2, n2), dtype=torch.int64, device=self.device)
+        out = None
+        if not build.runs_plain(pert, plain):
+            out = self._chunk_buffers(recipients * kct * min(chunk, rows) * n2)[0]
+        for s in range(0, rows, chunk):
+            e = min(s + chunk, rows)
+            acc = self._encode_chunk(pert[:, s:e].contiguous(),
+                                     rows_of(s, e, out).view(recipients, kct, e - s, n2),
+                                     acc, plain)
+        return acc
 
     @spanned("encode.index")
     def encode_pertinent_indices(
@@ -437,7 +390,7 @@ class Detector:
         times for the redundant digests (``examples/omr.rs:180-183``). All
         bucket draws come first, in one ``rng.integers`` call, as in the JAX
         package, so one numpy stream gives both packages the same digest.
-        ``plain=True`` runs the plain torch NTT instead of the kernel.
+        ``plain=True`` runs the plain versions instead of the kernels.
         """
         pert = self._on_device(pertinency)[None]
         return self._index_digests(retrieval_params, pert, rng, 1, chunk, plain)[0, 0]
@@ -472,51 +425,14 @@ class Detector:
         -> (R, K, 2, N2), every digest's rows built and summed in one
         chunk's launches."""
         with span(f"encode.rows/{self.device}"):
-            n2 = rp.polynomial_size
-            pert = self._on_device(pert).contiguous()
             base_addr = self._on_device(base_addr)
-            recipients, kct, rows = base_addr.shape[:3]
-            acc = torch.zeros((recipients, kct, 2, n2), dtype=torch.int64, device=self.device)
-            fwd = self._fwd(plain)
-            for s in range(0, rows, chunk):
-                e = min(s + chunk, rows)
-                poly = index_plaintexts(
+
+            def rows_of(s, e, out):
+                return index_plaintexts(
                     base_addr[:, :, s:e].reshape(-1, base_addr.shape[3]).contiguous(), lo + s,
-                    rp.index_slots_per_bucket, n2, rp.index_modulus, self.ctx.f2.q, plain,
-                    self._plain_buffer(recipients * kct * (e - s) * n2, plain, pert),
-                    period=e - s)
-                acc = self._encode_chunk(pert[:, s:e].contiguous(),
-                                         poly.view(recipients, kct, e - s, n2), acc, fwd)
-            return acc
-
-    def build_payload_plaintexts(
-        self,
-        retrieval_params: RetrievalParams,
-        payloads: np.ndarray,
-        weights: np.ndarray,
-    ) -> np.ndarray:
-        """Host: weighted-payload plaintext polys (B, N2), centred mod q
-        (the host twin of
-        :func:`~tfhe_omr_tpu_torch.ops.encode.payload_plain_device`).
-
-        payloads: (B, payload_length); weights: (cmb_count_per_cipher, B).
-        Slot layout: combination c occupies slots
-        [c*payload_length, (c+1)*payload_length) (``detector.rs:412-433``).
-        """
-        rp = retrieval_params
-        q = self.ctx.f2.q
-        p = rp.index_modulus
-        half_p = (p + 1) >> 1
-        n2 = rp.polynomial_size
-        plen = rp.payload_length
-        bsz = payloads.shape[0]
-        polys = np.zeros((bsz, n2), dtype=np.int64)
-        for c in range(weights.shape[0]):
-            wp = np.mod(payloads * weights[c][:, None], p)
-            polys[:, c * plen : (c + 1) * plen] = np.where(
-                wp < half_p, wp, q - p + wp
-            )
-        return polys
+                    rp.index_slots_per_bucket, rp.polynomial_size, rp.index_modulus,
+                    self.ctx.f2.q, plain, out, period=e - s)
+            return self._encode_rows(pert, base_addr.shape[1], chunk, plain, rows_of)
 
     @spanned("encode.payload")
     def encode_pertinent_payloads(
@@ -535,7 +451,7 @@ class Detector:
         (``detector.rs:341-453``). ``seed`` drives the shared weight stream
         that the retriever regenerates (``examples/omr.rs:194-203``). The
         payloads and weights go to the device once; ``plain=True`` runs the
-        plain torch NTT instead of the kernel.
+        plain versions instead of the kernels.
         """
         pert = self._on_device(pertinency)[None]
         return self._payload_digests(retrieval_params, pert, payloads, seed, chunk, plain)[0]
@@ -568,22 +484,14 @@ class Detector:
         rows) -> (R, kct, 2, N2), every digest's rows built and summed in
         one chunk's launches."""
         with span(f"encode.rows/{self.device}"):
-            n2 = rp.polynomial_size
-            pert = self._on_device(pert).contiguous()
             weights = self._on_device(weights)
-            recipients, kct, cmb, rows = weights.shape
-            weights = weights.reshape(recipients * kct, cmb, rows)
+            flat = weights.flatten(0, 1)  # (R kct, cmb, rows)
             pay = self._on_device(payloads).contiguous()
-            accs = torch.zeros((recipients, kct, 2, n2), dtype=torch.int64, device=self.device)
-            fwd = self._fwd(plain)
-            for s in range(0, rows, chunk):
-                e = min(s + chunk, rows)
-                poly = payload_plaintexts(
-                    pay[s:e], weights[:, :, s:e], n2, rp.index_modulus, self.ctx.f2.q, plain,
-                    self._plain_buffer(recipients * kct * (e - s) * n2, plain, pert))
-                accs = self._encode_chunk(pert[:, s:e].contiguous(),
-                                          poly.view(recipients, kct, e - s, n2), accs, fwd)
-            return accs
+
+            def rows_of(s, e, out):
+                return payload_plaintexts(pay[s:e], flat[:, :, s:e], rp.polynomial_size,
+                                          rp.index_modulus, self.ctx.f2.q, plain, out)
+            return self._encode_rows(pert, weights.shape[1], chunk, plain, rows_of)
 
 
 class RecipientsDetector(Detector):

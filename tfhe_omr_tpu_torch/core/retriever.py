@@ -72,14 +72,13 @@ class Retriever:
     def decrypt(self, ct, plain: bool = False) -> np.ndarray:
         """NTT-domain cts (..., 2, N2) -> coefficient-domain phase b - a*z2
         mod q2 (numpy). Runs on the key's device; ``plain=True`` takes the
-        plain torch inverse NTT instead of the kernel."""
+        plain torch inverse NTT instead of the kernel (``Ntt.inv_last``)."""
         f2, ntt2 = self.ctx.f2, self.ctx.ntt2
         if not torch.is_tensor(ct):
             ct = np.array(ct, dtype=np.int64)  # a writable host copy
         ct = torch.as_tensor(ct, dtype=torch.int64, device=self._z2_ntt.device)
         phase = f2.sub(ct[..., 1, :], f2.mul(ct[..., 0, :], self._z2_ntt))
-        inv = ntt2.inv_last_plain if plain else ntt2.inv_last
-        return inv(phase).cpu().numpy()
+        return ntt2.inv_last(phase, plain=plain).cpu().numpy()
 
     @spanned("decode.round")
     def _round_to_p(self, coeffs: np.ndarray) -> np.ndarray:

@@ -11,9 +11,9 @@ pertinency against its own rows (``sets``).
 
 Wrappers of ``csrc/encode.cu``: a CPU tensor runs the plain torch version,
 a CUDA tensor launches the kernel or raises; ``plain=True`` runs the plain
-version on any device (how the card holds the kernels against it). Each
-launch adds one to ``build.LAUNCHES["encode_mac"]``,
-``["encode_payload_plain"]`` or ``["encode_index_plain"]``.
+version on any device (``build.runs_plain``). Each launch adds one to
+``build.LAUNCHES["encode_mac"]``, ``["encode_payload_plain"]`` or
+``["encode_index_plain"]``.
 
 These kernels replace no TPU kernel: the JAX package leaves this product to
 XLA (``Detector._encode_chunk_jit``). It is bound by bytes; ``encode_mac``
@@ -104,7 +104,7 @@ def encode_mac(field: PrimeField, pert: torch.Tensor, pn: torch.Tensor,
     pn (R, K, B, N), acc (R, K, 2, N), each set's digests take its own rows,
     still in one launch."""
     lead = tuple(pn.shape[:-3])  # (R,) with R sets, else ()
-    if plain or build.device_kind(pert) == "cpu":
+    if build.runs_plain(pert, plain):
         if lead:
             return torch.stack([encode_mac_plain(field, pert[r], pn[r], acc[r])
                                 for r in range(lead[0])])
@@ -145,7 +145,7 @@ def payload_plaintexts(payloads: torch.Tensor, weights: torch.Tensor, n2: int,
     plen) contiguous, weights (K, cmb, B) with neighbouring messages
     neighbouring (a column slice of the board's weights); written into the
     front of ``out`` where one is given (on a card)."""
-    if plain or build.device_kind(payloads) == "cpu":
+    if build.runs_plain(payloads, plain):
         return payload_plain_device(payloads, weights, n2, idx_p, q2)
     kct, cmb, rows = weights.shape
     if (payloads.shape[0] != rows or weights.device != payloads.device
@@ -178,7 +178,7 @@ def index_plaintexts(base_addr: torch.Tensor, lo: int, nd: int, n2: int, idx_p: 
     of several recipients in one launch."""
     rows = base_addr.shape[0]
     period = period or max(rows, 1)
-    if plain or build.device_kind(base_addr) == "cpu":
+    if build.runs_plain(base_addr, plain):
         idx = torch.arange(rows, dtype=torch.int64, device=base_addr.device) % period + lo
         return index_poly_device(base_addr, idx, nd, n2, idx_p, q2)
     out = _out(out, (rows, n2), base_addr)

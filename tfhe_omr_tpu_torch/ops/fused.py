@@ -252,7 +252,7 @@ BR_STAGES = ("digits_fwd", "staging", "mac", "monomial", "inv_acc", "barrier")
 
 def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
                  key: BlindRotateKey, stage_clocks: torch.Tensor | None = None,
-                 plane_stamps: bool = True) -> torch.Tensor:
+                 plane_stamps: bool = True, plain: bool = False) -> torch.Tensor:
     """The paired CMUX chain on every sample: acc (M, 2, N) coefficient
     domain, amounts (2*n_steps, M) in [0, 2N) -> (M, 2, N). Any M: the
     kernel serves ``layout.s`` samples per block and masks the rest of the
@@ -268,9 +268,10 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     a run with a stack of R keys); its output is the same. It counts as
     ``<key name>_profiled`` in ``build.LAUNCHES``. ``plane_stamps=False``
     leaves out the two stamps of every key plane: "staging" stays 0 and is
-    counted in "mac", at less cost to the other stages. The plain path has
-    no clocks: a CPU tensor with ``stage_clocks`` raises."""
-    if build.device_kind(acc) == "cpu":
+    counted in "mac", at less cost to the other stages. A CPU tensor or
+    ``plain`` runs :func:`blind_rotate_plain`, which has no clocks: with
+    ``stage_clocks`` it raises."""
+    if build.runs_plain(acc, plain):
         if stage_clocks is not None:
             raise ValueError("blind_rotate: stage clocks come from the kernel; "
                              "the plain path has none")
@@ -387,13 +388,14 @@ def trace_plain(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
     return out.permute(2, 1, 0).contiguous()
 
 
-def trace(acc: torch.Tensor, key: TraceKey) -> torch.Tensor:
+def trace(acc: torch.Tensor, key: TraceKey, plain: bool = False) -> torch.Tensor:
     """EvalTr on every message: acc (B, 2, N) coefficient domain, already
     multiplied by N^{-1} -> (B, 2, N). Any B: the kernel serves
     ``layout.s`` messages per block and masks the rest of the last block.
     With a stack of R keys, B splits into R equal runs, run r under
-    recipient r's key, in one launch."""
-    if build.device_kind(acc) == "cpu":
+    recipient r's key, in one launch. A CPU tensor or ``plain`` runs
+    :func:`trace_plain`."""
+    if build.runs_plain(acc, plain):
         return trace_plain(acc, key)
     ntt, g = key.ntt, key.gadget
     n_msgs = acc.shape[0]

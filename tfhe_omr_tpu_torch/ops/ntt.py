@@ -410,19 +410,17 @@ class Ntt:
         build.LAUNCHES[self.name] += 1
         return out.reshape(x.shape)
 
-    def fwd_last(self, x: torch.Tensor, out=None) -> torch.Tensor:
-        """Forward NTT along the last axis: plain torch on the CPU, the
-        ``csrc/ntt.cu`` kernel on a CUDA tensor, written into ``out`` (as
+    def fwd_last(self, x: torch.Tensor, out=None, plain: bool = False) -> torch.Tensor:
+        """Forward NTT along the last axis: plain torch on the CPU or with
+        ``plain``, else the ``csrc/ntt.cu`` kernel, written into ``out`` (as
         many words as ``x``, held by the caller) where one is given."""
-        kind = build.device_kind(x)
-        if kind == "cpu":
+        if build.runs_plain(x, plain):
             return self.fwd_last_plain(x)
         return self._launch(x, inverse=False, out=out)
 
-    def inv_last(self, x: torch.Tensor) -> torch.Tensor:
+    def inv_last(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """Inverse NTT along the last axis (see :meth:`fwd_last`)."""
-        kind = build.device_kind(x)
-        if kind == "cpu":
+        if build.runs_plain(x, plain):
             return self.inv_last_plain(x)
         return self._launch(x, inverse=True)
 

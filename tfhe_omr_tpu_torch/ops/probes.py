@@ -134,7 +134,7 @@ def probe_chain(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
     where the elements alone do not fill the card (:func:`chain_plan`),
     ``iters`` given at run time."""
     _check_chain(x, y, op, streams)
-    if build.device_kind(x) == "cpu" or x.numel() == 0:
+    if build.runs_plain(x) or x.numel() == 0:
         return probe_chain_split(x, y, op, iters, streams, 1)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return probe_chain_split(x, y, op, iters, streams,
@@ -148,7 +148,7 @@ def probe_chain_split(x: torch.Tensor, y: torch.Tensor, op: str, iters: int,
     :func:`chain_plan` would pick: how ``benches/chain_plan_torch.py`` times
     every split."""
     _check_chain(x, y, op, streams)
-    if build.device_kind(x) == "cpu":
+    if build.runs_plain(x):
         return probe_chain_plain(x, y, op, iters, streams)
     out = torch.empty_like(x)
     build.require_cuda("probe_chain", x, y, out, dtypes=(x.dtype,))
@@ -190,7 +190,7 @@ def probe_mac_plain(x: torch.Tensor, y: torch.Tensor, iters: int,
 def probe_mac(x: torch.Tensor, y: torch.Tensor, iters: int, streams: int) -> torch.Tensor:
     """:func:`probe_mac_plain` through ``csrc/probes.cu`` on a card."""
     _check_mac(x, y, streams)
-    if build.device_kind(x) == "cpu":
+    if build.runs_plain(x):
         return probe_mac_plain(x, y, iters, streams)
     out = torch.empty_like(x)
     build.require_cuda("probe_mac", x, y, out, dtypes=(torch.int32,))
@@ -259,7 +259,7 @@ def probe_i8dot(a: torch.Tensor, b: torch.Tensor, rounds: int) -> torch.Tensor:
     packs b K-major (and a where k is not a multiple of 16) into one scratch
     buffer, k zero-padded to 16 bytes."""
     _check_dot(a, b)
-    if build.device_kind(a) == "cpu":
+    if build.runs_plain(a):
         return probe_i8dot_plain(a, b, rounds)
     a3 = a if a.dim() == 3 else a.unsqueeze(0)
     b3 = b if b.dim() == 3 else b.unsqueeze(0)

@@ -238,19 +238,19 @@ class ShardedDetector:
         for rep in self.replicas:
             synchronize(rep.device)
 
-    def encode_chunk(self, pertinency, plain) -> torch.Tensor:
+    def encode_chunk(self, pertinency, rows) -> torch.Tensor:
         """One digest chunk of K digests, sum over the messages of pert *
-        NTT(plain) mod q2 -> (K, 2, N2): pertinency (B, 2, N2), plaintext
-        polys (K, B, N2); each replica takes its rows through
+        NTT(rows) mod q2 -> (K, 2, N2): pertinency (B, 2, N2), plaintext
+        polys ``rows`` (K, B, N2); each replica takes its rows through
         :meth:`Detector._encode_chunk`."""
         rr = self._rank_rows(pertinency)
-        shape = (plain.shape[0], 2, plain.shape[2])
+        shape = (rows.shape[0], 2, rows.shape[2])
         partials = []
         for (rep, lo, hi), part in zip(self._local(rr.total), rr.parts):
             zero = torch.zeros(shape, dtype=torch.int64, device=rep.device)
             partials.append(rep._encode_chunk(
                 rep._on_device(part).contiguous(),
-                rep._on_device(plain[:, lo:hi]).contiguous(), zero, rep._fwd(False)))
+                rep._on_device(rows[:, lo:hi]).contiguous(), zero, False))
         return self._reduce(partials, shape)
 
     @spanned("encode.index")

@@ -14,7 +14,8 @@ went through the kernels.
 
 Nothing here falls back: a failed build raises with nvcc's output, a
 launch error raises with CUDA's error string, and a tensor on a device
-other than the CPU or a CUDA card is refused.
+other than the CPU or a CUDA card is refused. :func:`runs_plain` is the one
+place where a wrapper chooses between its kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -79,6 +80,14 @@ def device_kind(t: torch.Tensor) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel and no plain path for device {t.device}")
     return kind
+
+
+def runs_plain(t: torch.Tensor, plain: bool = False) -> bool:
+    """Whether a wrapper given ``t`` runs its plain torch version, not its
+    kernel: on a CPU tensor, or on a card with ``plain`` set (how the card
+    holds each kernel against its plain version). Every wrapper that has
+    both asks here; a tensor on any other device is refused."""
+    return device_kind(t) == "cpu" or plain
 
 
 def resolve_device(device=None) -> torch.device:

@@ -9,11 +9,16 @@ Phases (each prints its result; any failure exits non-zero):
   3. hold each kernel bit-equal to its plain torch version on the card at
      the main path's shapes (NTT q1 at 7*1024 rows and q2 at 2*1024 rows,
      and both at 1 and 37 rows; both blind rotations with all 256 / 335
-     steps on a 32-message sub-batch, and at ragged batches of 1 and 5
-     samples on the first 4 steps; the trace on 32 messages and on 1 and
-     5), timing both; then time the blind
+     steps on a 32-message sub-batch, K2 there on its one-block kernel,
+     and at ragged batches of 1 and 5 samples on the first 4 steps, K2 on
+     its cluster variant and on one block; the trace on 32 messages and
+     on 1 and 5), timing both; then time the blind
      rotations and the trace alone at the main path's batch (7*1024, 1024
-     and 1024 samples) and compute each kernel's bound there: the larger
+     and 1024 samples) and K2's cluster variant on one sample with all 335
+     steps (a one-message detect's launch: at the cluster size the launch
+     takes, held against plain, and at each size the kernel has, held
+     against the one-block kernel, each timed, one block timed beside
+     them), and compute each kernel's bound there: the larger
      of its bytes (every input read once, every output written once) over
      3.35 TB/s and the multiply slots of its modular products over
      1.675e13 slots a second (half the card's 67 TFLOP/s float32 lanes;
@@ -49,7 +54,10 @@ Phases (each prints its result; any failure exits non-zero):
      path's detect on the card;
   6. warm detect throughput at B = 1024 (median of 3) and its stage split;
      each of the three detects must launch K1-K4; the first detect after
-     the warm one must take at most 1.25 x that median;
+     the warm one must take at most 1.25 x that median; then a detect of
+     one message (the latency_d1 cell's board) from zeroed launch counters
+     must run K2 once on its cluster variant and never on one block, and
+     equal the plain path's;
   7. the whole OMR pipeline of examples/omr_torch.py at the reference
      parameters through the kernels: D = 8192 messages (50 pertinent),
      B = 1024, clues on the card, both digest encoders, the recipient's
@@ -118,13 +126,16 @@ Phases (each prints its result; any failure exits non-zero):
      samples and to the production kernels at the hot shapes, and the split
      of a CMUX step into its stages there (benches/probe_step_torch.py).
 The line before the last is a JSON record of the kernels (``launches``:
-phases 3c, 4+5, 7 and 8 together for K1-K5 and the encoders' kernels, phase 9's
+phases 3c, 4+5, 6's one message, 7 and 8 together for K1-K5 and the
+encoders' kernels, phase 9's
 timed runs for the probes,
 ``launches_by_path`` each (the ranks of phase
 8 are processes of their own: ``ranks`` is what rank 0's record counts),
 ``launches_per_detect`` one warm detect at B = 1024; ``ms`` / ``plain_ms`` at the compared shape,
 ``ms_main_path`` and ``bound_ms`` at the main path's; K1-K5 ``golden_launches``
-of phase 10, K1 and K2 ``mono_table`` (where the monomial stage reads its
+of phase 10, K2 ``cluster`` with its cluster variant's launches by path
+(``blind_rotate2_cluster``), its times at 1 x 335 steps by cluster size and
+on one block, and its bound there, K1 and K2 ``mono_table`` (where the monomial stage reads its
 psi-power table: "shared" memory or the read-only "cache", as the library's
 layout query reports it) and ``profiled`` with the profiled instantiation's
 launches, times and stage split, with stamps at every key plane, and
@@ -330,6 +341,7 @@ def phase_compare(ctx):
         trace_plain,
     )
     from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from fused_helpers import cluster_of
 
     p = ctx.params
     dev = ctx.device
@@ -373,19 +385,26 @@ def phase_compare(ctx):
         acc = acc.permute(2, 1, 0).contiguous()
         m = per_msg * SUB
         sub_acc, sub_am = acc[:m].contiguous(), amounts[:, :m].contiguous()
-        res[jname] = compare(jname, lambda: blind_rotate(sub_acc, sub_am, key),
-                             lambda: blind_rotate_plain(sub_acc, sub_am, key), 3,
-                             [m, 2, ntt.n, n_lwe // 2])
+        # the one-block kernel: SUB samples of the second level would run on
+        # clusters, which cluster_chain holds and times apart
+        with cluster_of(1):
+            res[jname] = compare(jname, lambda: blind_rotate(sub_acc, sub_am, key),
+                                 lambda: blind_rotate_plain(sub_acc, sub_am, key), 3,
+                                 [m, 2, ntt.n, n_lwe // 2])
         short = BlindRotateKey(bsk[:3 * RAGGED_STEPS], f.shoup_t(bsk[:3 * RAGGED_STEPS]),
                                ntt, g, f"blind_rotate{level}")
         for mr in RAGGED:
             r_acc = acc[:mr].contiguous()
             r_am = amounts[:2 * RAGGED_STEPS, :mr].contiguous()
-            if not torch.equal(blind_rotate(r_acc, r_am, short),
-                               blind_rotate_plain(r_acc, r_am, short)):
+            want = blind_rotate_plain(r_acc, r_am, short)
+            with cluster_of(1):
+                one = blind_rotate(r_acc, r_am, short)
+            if not (torch.equal(blind_rotate(r_acc, r_am, short), want)
+                    and torch.equal(one, want)):
                 raise AssertionError(f"{jname}: kernel != plain at {mr} samples")
         say(f"[compare] {jname}: bit-equal at ragged batches {RAGGED} "
-            f"({RAGGED_STEPS} steps, {key.layout.s} samples a block)")
+            f"({RAGGED_STEPS} steps, {key.layout.s} samples a block"
+            f"{', on clusters and on one block each' if key.cluster_fits else ''})")
         del bsk, short
         ms = median_ms(lambda: blind_rotate(acc, amounts, key), dev, 3)
         shoup, summed = (m_main * (n_lwe // 2) * c
@@ -398,6 +417,9 @@ def phase_compare(ctx):
         say(f"[main path] {jname} {res[jname]['main_path_shape']}: "
             f"{ms:.3f} ms, bound {res[jname]['bound_ms']:.3f} ms "
             f"({res[jname]['bound_by']}), key {key.nbytes()} bytes")
+        if key.cluster_fits:
+            res[f"{jname}_cluster"] = cluster_chain(key, acc[:1].contiguous(),
+                                                    amounts[:, :1].contiguous())
         del key, acc, amounts
         torch.cuda.empty_cache()
     f = ctx.f2
@@ -427,6 +449,54 @@ def phase_compare(ctx):
     say(f"[main path] trace {[BATCH, 2, p.n2]}: {ms:.3f} ms, bound "
         f"{res['trace']['bound_ms']:.3f} ms ({res['trace']['bound_by']})")
     return res
+
+
+def cluster_chain(key, acc, amounts):
+    """Phase 3, the second level's cluster variant on one sample with every
+    step (the launch of a one-message detect): bit-equal to plain and to the
+    one-block kernel at each cluster size the kernel has, each timed; the
+    size the launch takes itself is the main path, with its bound."""
+    from tfhe_omr_tpu_torch.ops.fused import blind_rotate, blind_rotate_plain, cluster_size
+    from tfhe_omr_tpu_torch.utils import build
+    from tfhe_omr_tpu_torch.utils.timing import median_ms
+    from fused_helpers import cluster_of
+
+    ntt, g = key.ntt, key.gadget
+    shape = [1, 2, ntt.n, key.n_steps]
+    jname = f"{key.name}_cluster"
+
+    def run():
+        return blind_rotate(acc, amounts, key)
+
+    before = dict(build.LAUNCHES)
+    r = compare(jname, run, lambda: blind_rotate_plain(acc, amounts, key), 3, shape)
+    launched = {c: build.LAUNCHES[c] - before.get(c, 0) for c in (key.name, jname)}
+    if launched != {key.name: 0, jname: 4}:  # compare's call and median_ms's 3
+        raise AssertionError(f"{jname}: one sample launched {launched}")
+    want = run()
+    with cluster_of(1):
+        if not torch.equal(run(), want):
+            raise AssertionError(f"{jname}: the one-block kernel != the cluster variant")
+        one_ms = median_ms(run, "cuda", 3)
+    ms_by_cluster = {}
+    for c in key.layout.clusters:
+        with cluster_of(c):
+            if not torch.equal(run(), want):
+                raise AssertionError(f"{jname}: clusters of {c} != plain at {shape}")
+            ms_by_cluster[str(c)] = median_ms(run, "cuda", 3, warm=False)
+    sms = torch.cuda.get_device_properties(acc.device).multi_processor_count
+    shoup, summed = (key.n_steps * c for c in blind_rotate_products(ntt.n, g.d))
+    r.update(cluster=cluster_size(1, sms, key.cluster_fits), cluster_fits=key.cluster_fits,
+             ms_by_cluster=ms_by_cluster, one_block_ms=one_ms,
+             ms_main_path=r["ms"], main_path_shape=shape,
+             **bound(2 * nbytes(acc) + nbytes(amounts, key.keys[0], key.mono,
+                                              key.tw_fwd, key.tw_inv, key.orders),
+                     shoup, summed, ntt.field))
+    say(f"[main path] {jname} {shape}: clusters of {r['cluster']} {r['ms']:.3f} ms "
+        f"(one block {one_ms:.3f} ms; by cluster size {ms_by_cluster}; the card holds "
+        f"{key.cluster_fits} clusters at once), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); bit-equal to plain and to one block at every size")
+    return r
 
 
 def phase_encode(ctx):
@@ -1049,7 +1119,8 @@ def phase_golden(ctx, gpu):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     for name, kernel in golden.KERNEL_PINS.items():
-        if launches.get(kernel, 0) <= 0:
+        # K2's 4 samples run on clusters (ops/fused.py cluster_size)
+        if launches.get(kernel, 0) + launches.get(f"{kernel}_cluster", 0) <= 0:
             raise AssertionError(f"golden {name}: {kernel} never launched")
         if got[name].shape != pinned[name].shape or not np.array_equal(got[name], pinned[name]):
             raise AssertionError(f"golden {name} through {kernel} != the pinned vector")
@@ -1149,7 +1220,7 @@ def main() -> int:
         return 1
     # the port itself: absent when this script stands alone, which fails here
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    for sub in ("examples", "benches"):
+    for sub in ("examples", "benches", "tests"):
         sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), sub))
     from omd_torch import run_omd
     from tfhe_omr_tpu_torch.core.context import OmrContext
@@ -1232,6 +1303,19 @@ def main() -> int:
     if run.detect_s > WARM_FIRST_MAX * med.detect_time:
         raise AssertionError(f"the first detect after warm took {run.detect_s:.4f} s, "
                              f"over {WARM_FIRST_MAX} x the warm median")
+
+    one = ClueBatch(run.clues.a[:1], run.clues.b7[:1])
+    build.reset_launches()
+    got = run.detector.detect(one)
+    latency_launches = dict(build.LAUNCHES)
+    if (latency_launches.get("blind_rotate2_cluster", 0) != 1
+            or latency_launches.get("blind_rotate2", 0) != 0):
+        raise AssertionError(f"a one-message detect launched {latency_launches}: K2 "
+                             "must run once on a cluster and never on one block")
+    if not torch.equal(got, run.detector.detect(one, plain=True)):
+        raise AssertionError("a one-message detect through the kernels != plain detect")
+    say(f"[latency] one-message detect: K2 on a cluster once, bit-equal to the plain "
+        f"path's; launches {latency_launches}")
     del run, runs, plain, res
     torch.cuda.empty_cache()
 
@@ -1250,21 +1334,21 @@ def main() -> int:
     profiled, profiled_launches = phase_profiled(ctx, gpu)
     say(f"[golden] phase 10 took {time.perf_counter() - t0:.2f} s")
 
+    def by_path(counter):
+        return {"omd": launches.get(counter, 0), "omr": omr_launches.get(counter, 0),
+                "sharded": sharded_launches.get(counter, 0),
+                "ranks": ranks_launches.get(counter, 0),
+                "recipients": recipients_launches.get(counter, 0),
+                "latency": latency_launches.get(counter, 0)}
+
     kernels = []
     for counter, jname, source, replaces in KERNELS:
         r = results[jname]
         kernels.append({
             "name": jname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (launches.get(counter, 0) + omr_launches[counter]
-                         + sharded_launches.get(counter, 0)
-                         + ranks_launches[counter]
-                         + recipients_launches.get(counter, 0)),
-            "launches_by_path": {"omd": launches.get(counter, 0),
-                                 "omr": omr_launches[counter],
-                                 "sharded": sharded_launches.get(counter, 0),
-                                 "ranks": ranks_launches[counter],
-                                 "recipients": recipients_launches.get(counter, 0)},
+            "launches": sum(by_path(counter).values()),
+            "launches_by_path": by_path(counter),
             "launches_per_detect": per_detect[counter],
             "warm_launches": warm_launches.get(counter, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1293,6 +1377,17 @@ def main() -> int:
                 "clock_max_sm_mhz": p["clock_max_sm_mhz"], "stages": p["stages"],
                 "per_pass": {k: p["per_pass"][k] for k in (
                     "profiled_ms", "stamp_cost_pct", "stages")}}
+        if f"{jname}_cluster" in results:
+            r = results[f"{jname}_cluster"]
+            cname = f"{counter}_cluster"
+            kernels[-1]["cluster"] = {
+                "counter": cname, "launches": sum(by_path(cname).values()),
+                "launches_by_path": by_path(cname),
+                "golden_launches": golden_launches.get(cname, 0),
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "cluster",
+                                     "cluster_fits", "ms_by_cluster", "one_block_ms",
+                                     "ms_main_path", "main_path_shape", "bound_ms",
+                                     "bound_by", "bound_bytes", "bound_products")}}
     for counter, jname, source, replaces in ENCODER_KERNELS:
         r = encode_results[jname]
         by_path = {"omr": omr_launches.get(counter, 0),

@@ -1,13 +1,16 @@
 """Time the five CUDA kernels alone at the main path's shapes.
 
 K1 / K2: the blind rotations on 7 x B and B samples with all 256 / 335
-steps (B = 1024 by default; ``--steps`` cuts the chains to fewer). K3: the trace on B messages, all rounds.
-K4: the q2 NTT, forward and inverse, on 1, 28 and 2048 rows (the
-Retriever's index and payload digests, the encoders' chunk). K5: the q1
-NTT on 7 x B rows (key generation). Random keys and inputs from a seed.
-Each kernel is first held bit-equal to its plain version on ``--check``
-samples or rows. Prints the card's name and power limit and what ptxas
-said of every kernel. Needs a CUDA card.
+steps (B = 1024 by default; ``--batch 1,8,22`` times them at each of those
+B in turn; ``--steps`` cuts the chains to fewer). Each line names the
+launch it took: ``blind_rotate2`` or, where the card would otherwise stand
+mostly idle, ``blind_rotate2_cluster``. K3: the trace on B messages, all
+rounds, and on 1. K4: the q2 NTT, forward and inverse, on 1, 28 and 2 x B
+rows (the Retriever's index and payload digests, the encoders' chunk). K5:
+the q1 NTT on 7 x B rows (key generation). K4 and K5 take the largest B.
+Random keys and inputs from a seed. Each kernel is first held bit-equal to
+its plain version on ``--check`` samples or rows. Prints the card's name
+and power limit and what ptxas said of every kernel. Needs a CUDA card.
 
 To compare two commits, run this script against each checkout on the same
 card, one after the other, in turns (parent, change, change, parent).
@@ -30,8 +33,8 @@ and one block a row group: blocks that outlive their rows against blocks
 that do not.
 
 Usage:
-    python examples/bench_kernels_torch.py [--batch 1024] [--steps S] [--reps 3]
-        [--only k1,k2,k3,k4,k5,c3] [--grid]
+    python examples/bench_kernels_torch.py [--batch 1024 | --batch 1,8,22,44,96,1024]
+        [--steps S] [--reps 3] [--only k1,k2,k3,k4,k5,c3] [--grid]
 """
 
 from __future__ import annotations
@@ -138,7 +141,8 @@ def bench_c3(gen, reps: int, gpu: str) -> None:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--batch", default="1024",
+                    help="B, or comma-separated B at which to time K1-K3 in turn")
     ap.add_argument("--steps", type=int,
                     help="CMUX steps of K1 and K2 (default all: 256 and 335)")
     ap.add_argument("--reps", type=int, default=3,
@@ -151,6 +155,8 @@ def main():
     ap.add_argument("--seed", type=int, default=20261016)
     args = ap.parse_args()
     only = set(args.only.split(","))
+    batches = [int(b) for b in args.batch.split(",")]
+    batch = max(batches)
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from tfhe_omr_tpu_torch.core.context import OmrContext
@@ -181,32 +187,36 @@ def main():
 
     levels = (
         ("k1", "blind_rotate1", ctx.f1, ctx.ntt1, ctx.gadget_br1, ctx.lut1_ext,
-         params.clue_params.dimension, params.clue_count * args.batch),
+         params.clue_params.dimension, params.clue_count),
         ("k2", "blind_rotate2", ctx.f2, ctx.ntt2, ctx.gadget_br2, ctx.lut2_ext,
-         params.intermediate_lwe.dimension, args.batch),
+         params.intermediate_lwe.dimension, 1),
     )
-    for kid, name, f, ntt, g, lut, n_lwe, m in levels:
+    for kid, name, f, ntt, g, lut, n_lwe, per_msg in levels:
         if kid not in only:
             continue
         n_lwe = 2 * min(args.steps or n_lwe // 2, n_lwe // 2)
         bsk = uniform(f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
         key = BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, name)
         del bsk
-        b = uniform(2 * ntt.n, (m,))
-        amounts = uniform(2 * ntt.n, (n_lwe, m))
-        acc = init_accumulator(torch.as_tensor(lut, device=dev), b, ntt.n)
-        acc = acc.permute(2, 1, 0).contiguous()
-        if args.check:
-            c = args.check
-            sub_acc, sub_am = acc[:c].contiguous(), amounts[:, :c].contiguous()
-            held(name, f"{c} samples x {n_lwe // 2} steps",
-                 blind_rotate(sub_acc, sub_am, key),
-                 blind_rotate_plain(sub_acc, sub_am, key))
-        ms = median_ms(lambda: blind_rotate(acc, amounts, key), "cuda", args.reps)
-        print(f"{name}: {m} samples x {n_lwe // 2} steps: {ms:.3f} ms "
-              f"(median of {args.reps}), key {key.nbytes()} bytes, on {gpu}",
-              flush=True)
-        del key, acc, amounts
+        for m in [per_msg * n for n in batches]:
+            b = uniform(2 * ntt.n, (m,))
+            amounts = uniform(2 * ntt.n, (n_lwe, m))
+            acc = init_accumulator(torch.as_tensor(lut, device=dev), b, ntt.n)
+            acc = acc.permute(2, 1, 0).contiguous()
+            if args.check:
+                c = min(args.check, m)
+                sub_acc, sub_am = acc[:c].contiguous(), amounts[:, :c].contiguous()
+                held(name, f"{c} samples x {n_lwe // 2} steps",
+                     blind_rotate(sub_acc, sub_am, key),
+                     blind_rotate_plain(sub_acc, sub_am, key))
+            build.reset_launches()
+            ms = median_ms(lambda: blind_rotate(acc, amounts, key), "cuda", args.reps)
+            path = ",".join(sorted(c for c, n in build.LAUNCHES.items() if n))
+            print(f"{name}: {m} samples x {n_lwe // 2} steps: {ms:.3f} ms "
+                  f"(median of {args.reps}, launch {path}), key {key.nbytes()} bytes, "
+                  f"on {gpu}", flush=True)
+            del acc, amounts
+        del key
         torch.cuda.empty_cache()
 
     if "k3" in only:
@@ -214,12 +224,12 @@ def main():
         tk = uniform(f.q, (len(autos), params.n2, g.d, 2))
         key = TraceKey(tk, f.shoup_t(tk), ctx.ntt2, g, autos)
         del tk
-        acc = uniform(f.q, (args.batch, 2, params.n2))
+        acc = uniform(f.q, (batch, 2, params.n2))
         if args.check:
             sub = acc[:args.check].contiguous()
             held("trace", f"{args.check} messages x {len(autos)} rounds",
                  trace(sub, key), trace_plain(sub, key))
-        for m in (args.batch, 1):
+        for m in sorted({*batches, 1}, reverse=True):
             part = acc[:m].contiguous()
             ms = median_ms(lambda: trace(part, key), "cuda", args.reps)
             print(f"trace: {m} messages x {len(autos)} rounds: {ms:.3f} ms "
@@ -228,8 +238,8 @@ def main():
         del key, acc
         torch.cuda.empty_cache()
 
-    ntts = (("k4", ctx.ntt2, (1, 28, 2 * args.batch)),
-            ("k5", ctx.ntt1, (params.clue_count * args.batch,)))
+    ntts = (("k4", ctx.ntt2, (1, 28, 2 * batch)),
+            ("k5", ctx.ntt1, (params.clue_count * batch,)))
     for kid, ntt, row_counts in ntts:
         if kid not in only:
             continue

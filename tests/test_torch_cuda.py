@@ -36,6 +36,8 @@ from tfhe_omr_tpu_torch.ops.fused import (
 from tfhe_omr_tpu_torch.ops.ntt import Ntt
 from tfhe_omr_tpu_torch.utils import build
 
+from fused_helpers import cluster_of
+
 pytestmark = pytest.mark.cuda
 
 PRESETS = ["default", "tiny"]
@@ -109,6 +111,7 @@ def _blind_rotate_case(cuda, preset, level, m, n_lwe=12):
 
 # ragged batches: 1, S - 1, S + 1 for the first level's S = 4 samples per
 # block, a size that fills no whole number of blocks at either level, and 33
+# (the second level's small batches run on clusters: one launch of either)
 @pytest.mark.parametrize("m", [1, 3, 5, 9, 33])
 @pytest.mark.parametrize("preset", PRESETS)
 @pytest.mark.parametrize("level", [1, 2])
@@ -117,17 +120,68 @@ def test_blind_rotate_kernel_matches_plain(cuda, preset, level, m):
     amounts[:, 0] = 0
     if m > 1:
         amounts[:, 1] = 2 * key.ntt.n - 1
-    before = build.LAUNCHES[key.name]
+    counters = (key.name, f"{key.name}_cluster")
+    before = sum(build.LAUNCHES[c] for c in counters)
     got = blind_rotate(acc, amounts, key)
-    assert build.LAUNCHES[key.name] == before + 1
+    assert sum(build.LAUNCHES[c] for c in counters) == before + 1
     assert torch.equal(got, blind_rotate_plain(acc, amounts, key))
+
+
+# the second level on an emptier card: every C the reference d = 6 takes
+# (on an H100 SXM, which holds 17 clusters of 6, 39 of 3 and 66 of 2 at
+# once: 6 up to 17 samples, 3 up to 39, 2 up to 66) and the one-block
+# kernel from 67 on; the tiny d = 7 takes 7 up to 18 samples. On either
+# H100 (114 or 132 SMs) the reference runs clusters up to 45 samples at
+# least and the tiny preset up to 7
+@pytest.mark.parametrize("m", [1, 2, 7, 22, 23, 44, 45, 67])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_blind_rotate_cluster_kernel_matches_plain_and_one_block(cuda, preset, m):
+    key, acc, amounts = _blind_rotate_case(cuda, preset, 2, m)
+    amounts[:, 0] = 2 * key.ntt.n - 1
+    acc[0, 1] = key.ntt.field.q - 1
+    cluster = m <= (45 if preset == "default" else 7)
+    build.reset_launches()
+    got = blind_rotate(acc, amounts, key)
+    assert dict(build.LAUNCHES) == (
+        {"blind_rotate2_cluster": 1} if cluster else {"blind_rotate2": 1})
+    assert torch.equal(got, blind_rotate_plain(acc, amounts, key))
+    with cluster_of(1):
+        assert torch.equal(got, blind_rotate(acc, amounts, key))
+    assert build.LAUNCHES["blind_rotate2"] == 1 + (not cluster)
+
+
+# a sample a key: clusters of one key's sample each, under that key
+@pytest.mark.parametrize("recipients", [1, 2, 4])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_blind_rotate_cluster_kernel_per_recipient_keys(cuda, preset, recipients):
+    ctx = _ctx(preset, cuda)
+    f, ntt, g = ctx.f2, ctx.ntt2, ctx.gadget_br2
+    n_lwe = 4
+    gen = torch.Generator(device=cuda).manual_seed(70 + recipients)
+    keys = []
+    for _ in range(recipients):
+        bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+        keys.append(BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, "blind_rotate2"))
+    stack = _stack(keys)
+    acc = _uniform(gen, f.q, (recipients, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, recipients))
+    build.reset_launches()
+    got = blind_rotate(acc, amounts, stack)
+    assert dict(build.LAUNCHES) == {"blind_rotate2_cluster": 1}
+    want = torch.cat([blind_rotate_plain(acc[r:r + 1], amounts[:, r:r + 1], keys[r])
+                      for r in range(recipients)])
+    assert torch.equal(got, want)
+    with cluster_of(1):
+        assert torch.equal(got, blind_rotate(acc, amounts, stack))
 
 
 @pytest.mark.parametrize("preset", PRESETS)
 @pytest.mark.parametrize("level", [1, 2])
 def test_blind_rotate_kernel_extreme_amounts(cuda, preset, level):
     """Every rotation 0 or 2N - 1 (their sum wraps past 2N: the kernel
-    masks where the plain version takes ``% 2N``), extreme coefficients."""
+    masks where the plain version takes ``% 2N``), extreme coefficients;
+    at the second level through the cluster variant and the one-block
+    kernel both."""
     key, acc, amounts = _blind_rotate_case(cuda, preset, level, 6)
     two_n = 2 * key.ntt.n
     amounts[:] = torch.where(amounts % 2 == 0, 0, two_n - 1)
@@ -135,8 +189,12 @@ def test_blind_rotate_kernel_extreme_amounts(cuda, preset, level):
     amounts[:, 1] = 0
     acc[2] = key.ntt.field.q - 1
     acc[3] = 0
-    assert torch.equal(blind_rotate(acc, amounts, key),
-                       blind_rotate_plain(acc, amounts, key))
+    plain = blind_rotate_plain(acc, amounts, key)
+    assert torch.equal(blind_rotate(acc, amounts, key), plain)
+    build.reset_launches()
+    with cluster_of(1):
+        assert torch.equal(blind_rotate(acc, amounts, key), plain)
+    assert dict(build.LAUNCHES) == {key.name: 1}
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -224,9 +282,10 @@ def test_blind_rotate_kernel_per_recipient_keys(cuda, preset, level, recipients,
     acc = _uniform(gen, f.q, (m, 2, ntt.n))
     amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
     amounts[:, 0] = 2 * ntt.n - 1
-    before = build.LAUNCHES[stack.name]
+    counters = (stack.name, f"{stack.name}_cluster")
+    before = sum(build.LAUNCHES[c] for c in counters)
     got = blind_rotate(acc, amounts, stack)
-    assert build.LAUNCHES[stack.name] == before + 1
+    assert sum(build.LAUNCHES[c] for c in counters) == before + 1
     want = torch.cat([blind_rotate(acc[r * per:(r + 1) * per],
                                    amounts[:, r * per:(r + 1) * per], keys[r])
                       for r in range(recipients)])
@@ -328,8 +387,9 @@ def test_detect_kernels_match_plain_and_pass_omd(cuda):
     clues = ClueBatch.concat([sender.gen_clues(3, rng), sender2.gen_clues(5, rng)])
     build.reset_launches()
     out = detector.detect(clues)
+    # 8 messages: the second level on clusters (ops/fused.py cluster_size)
     assert all(build.LAUNCHES[k] > 0 for k in
-               ("blind_rotate1", "blind_rotate2", "trace", "ntt2"))
+               ("blind_rotate1", "blind_rotate2_cluster", "trace", "ntt2"))
     assert torch.equal(out, detector.detect(clues, plain=True))
     q, t = params.q2, params.output_plain_modulus
     dec = skp.decrypt_rlwe2_ntt(out)
@@ -352,6 +412,31 @@ def test_default_ring_detect_kernels_match_plain(cuda):
     detector = skp.generate_detector()
     clues = skp.generate_sender().gen_clues(6, np.random.default_rng(2))
     assert torch.equal(detector.detect(clues), detector.detect(clues, plain=True))
+
+
+def test_detect_takes_the_cluster_path_only_on_an_empty_card(cuda):
+    """At the default rings (reduced LWE dimensions): a one-message detect
+    runs K2 on a cluster, once, and never the one-block kernel; a detect of
+    1024 the reverse. Both equal the plain detect."""
+    params = replace(
+        OmrParameters.default(),
+        clue_params=LweParams(32, 8, 2048, "binary", 0.8293),
+        first_level_ks=replace(OmrParameters.default().first_level_ks, out_dimension=16),
+        intermediate_lwe=LweParams(16, 32, 4096, "binary", 10.3260),
+    )
+    ctx = OmrContext(params, cuda)
+    skp = SecretKeyPack(params, rng=3, ctx=ctx)
+    detector = skp.generate_detector()
+    clues = skp.generate_sender().gen_clues(1024, np.random.default_rng(4))
+    one = ClueBatch(clues.a[:1], clues.b7[:1])
+    for batch, path, other in ((one, "blind_rotate2_cluster", "blind_rotate2"),
+                               (clues, "blind_rotate2", "blind_rotate2_cluster")):
+        build.reset_launches()
+        got = detector.detect(batch)
+        assert build.LAUNCHES[path] == 1 and build.LAUNCHES[other] == 0
+        assert build.LAUNCHES["blind_rotate1"] == 1
+        sub = ClueBatch(batch.a[:8], batch.b7[:8])
+        assert torch.equal(got[:8], detector.detect(sub, plain=True))
 
 
 @pytest.mark.parametrize("preset,total,chunk", [("tiny", 40, 16),
@@ -482,7 +567,9 @@ def test_sharded_detector_on_the_cards_matches_single(cuda):
     single = detector.detect(clues)
     build.reset_launches()
     got = sharded.detect(clues)
-    assert build.LAUNCHES["blind_rotate2"] == sharded.n_dev
+    # shards of at most 6 messages: the second level on clusters
+    assert build.LAUNCHES["blind_rotate2_cluster"] == sharded.n_dev
+    assert build.LAUNCHES["blind_rotate2"] == 0
     assert [p.device for p in got.parts] == [rep.device for rep in sharded.replicas]
     np.testing.assert_array_equal(sharded.gather(got), single.cpu().numpy())
     rp = RetrievalParams.for_params(params, 11, 4)

@@ -28,6 +28,8 @@ from tfhe_omr_tpu_torch.ops.bootstrap import init_accumulator
 from tfhe_omr_tpu_torch.ops.ntt import Ntt
 from tfhe_omr_tpu_torch.utils import build
 
+from fused_helpers import cluster_of
+
 torch.set_num_threads(1)
 
 PRESETS = ["default", "tiny"]
@@ -200,6 +202,130 @@ def test_blind_rotate_kernel_per_recipient_keys_on_host(host, level, recipients,
     if recipients > 1:
         assert not torch.equal(got[runs[1]], fused.blind_rotate(
             acc[runs[1]], amounts[:, runs[1]], keys[0]))
+
+
+# the cluster variant of K2: (blocks, SMs, {C: clusters of C the card holds
+# at once} for the variants instantiated, the C chosen). The reference
+# d = 6 has variants of 2, 3 and 6: with room for any number of clusters
+# (the host build), on 132 SMs C = 6 up to 22 samples, 3 up to 44, 2 up to
+# 66, the one-block kernel from 67 on; where the card holds 17 clusters of
+# 6, 39 of 3 and 66 of 2 at once (an H100 SXM), 6 up to 17, 3 up to 39. The
+# tiny preset's d = 7 has one of 7, a first level none.
+ANY = 1 << 20
+REF_ANY = {2: ANY, 3: ANY, 6: ANY}
+REF_H100 = {2: 66, 3: 39, 6: 17}
+TINY_ANY = {7: ANY}
+
+
+@pytest.mark.parametrize("blocks,sms,fits,want", [
+    (1, 132, REF_ANY, 6), (22, 132, REF_ANY, 6), (23, 132, REF_ANY, 3),
+    (44, 132, REF_ANY, 3), (66, 132, REF_ANY, 2), (67, 132, REF_ANY, 1),
+    (96, 132, REF_ANY, 1), (128, 132, REF_ANY, 1), (1024, 132, REF_ANY, 1),
+    (1, 132, REF_H100, 6), (17, 132, REF_H100, 6), (22, 132, REF_H100, 3),
+    (23, 132, REF_H100, 3), (39, 132, REF_H100, 3), (44, 132, REF_H100, 2),
+    (66, 132, REF_H100, 2), (67, 132, REF_H100, 1), (96, 132, REF_H100, 1),
+    (1024, 132, REF_H100, 1), (1, 132, TINY_ANY, 7), (18, 132, TINY_ANY, 7),
+    (19, 132, TINY_ANY, 1), (1, 132, {}, 1), (1, 1, REF_ANY, 1), (1, 2, REF_ANY, 2),
+    (1, 5, REF_ANY, 3), (0, 132, REF_ANY, 6),
+])
+def test_cluster_size(blocks, sms, fits, want):
+    c = fused.cluster_size(blocks, sms, fits)
+    assert c == want
+    assert 1 <= c <= fused.CLUSTER_MAX
+    assert c == 1 or (c in fits and blocks * c <= sms and blocks <= fits[c])
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("level", [1, 2])
+def test_blind_rotate_layout_reports_its_cluster_variants(host, preset, level):
+    """The second levels have a cluster variant for every C in 2..8 that
+    splits their d digits (the reference d = 6: 2, 3, 6; the tiny d = 7:
+    7), the first levels none."""
+    ctx = _ctx(preset)
+    ntt, g = (ctx.ntt1, ctx.gadget_br1) if level == 1 else (ctx.ntt2, ctx.gadget_br2)
+    want = () if level == 1 else tuple(c for c in range(2, 9) if g.d % c == 0)
+    assert fused.br_layout(ntt, g).clusters == want
+    assert want != () or level == 1
+
+
+def _cluster_case(preset, m, n_lwe=4, seed=50):
+    ctx = _ctx(preset)
+    f, ntt, g = ctx.f2, ctx.ntt2, ctx.gadget_br2
+    gen = torch.Generator().manual_seed(seed)
+    bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+    key = fused.BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, "blind_rotate2")
+    acc = _uniform(gen, f.q, (m, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, m))
+    return key, acc, amounts
+
+
+# (preset, samples, SMs of the stand-in card, the C that the launch takes)
+@pytest.mark.parametrize("preset,m,sms,c", [
+    ("default", 1, 2, 2), ("default", 1, 3, 3), ("default", 1, 6, 6),
+    ("default", 2, 12, 6), ("default", 2, 11, 3), ("default", 3, 6, 2),
+    ("default", 4, 6, 1), ("tiny", 1, 7, 7), ("tiny", 3, 132, 7), ("tiny", 2, 13, 1),
+])
+def test_blind_rotate_cluster_kernel_on_host_matches_plain(host, monkeypatch, preset, m,
+                                                           sms, c):
+    """A sample a cluster of C CTAs, each CTA d / C of the digits, the
+    partial products summed over the cluster: equal to the plain version
+    and to the one-block kernel, and counted under its own name."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=sms))
+    key, acc, amounts = _cluster_case(preset, m)
+    amounts[:, 0] = 2 * key.ntt.n - 1
+    acc[0, 1] = key.ntt.field.q - 1
+    build.LAUNCHES.clear()
+    got = fused.blind_rotate(acc, amounts, key)
+    path = "blind_rotate2_cluster" if c > 1 else "blind_rotate2"
+    assert dict(build.LAUNCHES) == {path: 1}
+    assert torch.equal(got, fused.blind_rotate_plain(acc, amounts, key))
+    with cluster_of(1):
+        assert torch.equal(got, fused.blind_rotate(acc, amounts, key))
+    assert build.LAUNCHES["blind_rotate2"] == 1 + (c == 1)
+
+
+@pytest.mark.parametrize("preset,sms", [("default", 6), ("tiny", 7)])
+def test_blind_rotate_cluster_kernel_extreme_amounts_on_host(host, monkeypatch, preset, sms):
+    """Every rotation 0 or 2N - 1 and extreme coefficients through the
+    cluster of the largest C: the sums over the cluster at their largest."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=sms))
+    key, acc, amounts = _cluster_case(preset, 1, n_lwe=6, seed=51)
+    two_n = 2 * key.ntt.n
+    amounts[:] = torch.where(amounts % 2 == 0, 0, two_n - 1)
+    acc[0, 0] = key.ntt.field.q - 1
+    build.LAUNCHES.clear()
+    got = fused.blind_rotate(acc, amounts, key)
+    assert dict(build.LAUNCHES) == {"blind_rotate2_cluster": 1}
+    assert torch.equal(got, fused.blind_rotate_plain(acc, amounts, key))
+
+
+# a cluster a sample under each sample's recipient's key
+@pytest.mark.parametrize("recipients", [1, 2, 4])
+def test_blind_rotate_cluster_kernel_per_recipient_keys_on_host(host, monkeypatch,
+                                                                recipients):
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    ctx = _ctx("tiny")
+    f, ntt, g = ctx.f2, ctx.ntt2, ctx.gadget_br2
+    n_lwe = 4
+    gen = torch.Generator().manual_seed(60 + recipients)
+    keys = []
+    for _ in range(recipients):
+        bsk = _uniform(gen, f.q, (3 * n_lwe // 2, ntt.n, g.d, 2, 2))
+        keys.append(fused.BlindRotateKey(bsk, f.shoup_t(bsk), ntt, g, "blind_rotate2"))
+    stack = _stack(keys)
+    acc = _uniform(gen, f.q, (recipients, 2, ntt.n))
+    amounts = _uniform(gen, 2 * ntt.n, (n_lwe, recipients))
+    build.LAUNCHES.clear()
+    got = fused.blind_rotate(acc, amounts, stack)
+    assert dict(build.LAUNCHES) == {"blind_rotate2_cluster": 1}
+    want = torch.cat([fused.blind_rotate_plain(acc[r:r + 1], amounts[:, r:r + 1], keys[r])
+                      for r in range(recipients)])
+    assert torch.equal(got, want)
+    with cluster_of(1):
+        assert torch.equal(got, fused.blind_rotate(acc, amounts, stack))
 
 
 @pytest.mark.parametrize("per", [1, 2])

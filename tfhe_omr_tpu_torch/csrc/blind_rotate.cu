@@ -86,6 +86,62 @@
 // all resident blocks at about the same time) and the ring hides its
 // latency: the key's bytes are not what the kernel waits for.
 //
+// Clusters (second level only). One sample a block leaves a card of 132
+// SMs mostly idle below 132 samples: at one message (D = 1) one SM runs all
+// 335 steps. Where the launch's blocks would leave SMs idle, ops/fused.py
+// cluster_size picks C, the largest instantiated size (below) such that
+// each sample's cluster of C CTAs runs at once (blocks x C <= SMs, blocks at
+// most the clusters of C the card holds at once, which the occupancy query
+// reports: on an H100 SXM 17 of 6, 39 of 3, 66 of 2); the launch takes the
+// cluster variant BrCluster<K, C, DJ> of the same template, counted as
+// `<key name>_cluster`. Otherwise (67 samples and more at d = 6, every
+// first level) the one-block kernels run, compiled to the same code as
+// without the variants. In a cluster CTA rank j takes the digits
+// j d / C .. (j + 1) d / C - 1: it rounds and decomposes the whole
+// accumulator for them, transforms them (DJ a pass) and multiply-accumulates
+// against only their 12 d / C key planes a step, read from the one-block
+// key layout (key_plane), so each CTA streams 1/C of a step's 1.18 MB and
+// no key is held twice. Its monomial stage turns its partial rows into
+// partial products over all N slots (linear, so the sum of the C partial
+// products is the one-block product), left at the head of its digit
+// buffer. Then, between two cluster barriers (barrier.cluster.arrive.release
+// / wait.acquire: each CTA's writes before one are seen by all after it),
+// CTA j sums its share of the 2N (polynomial, slot) pairs, pairs
+// j 2N / C .. (j + 1) 2N / C - 1, over the C buffers through distributed
+// shared memory (mapa), and writes the canonical sum back into all C
+// buffers: C residues below q2 < 2^50 sum below 2^53, one fold and two
+// subtracts. After the second barrier every CTA holds the whole product and
+// runs both inverse NTTs into its own copy of the accumulator (the inverse
+// is done C times: 24 % of a cluster step). A peer's buffer is read and
+// written only between the two barriers, and only in the pairs the reader
+// owns; a CTA overwrites its own buffer (the next step's forward NTT) only
+// after the second, and no peer reads it again before the next step's
+// first. CTA rank 0 writes the output. Shared memory of a CTA (bytes):
+// acc 34,816 | digits 34,816 (DJ = 1) or 69,632 (DJ = 2) | forward
+// twiddles 32,752 | ring 65,536 | the monomial table 32,768 where it fits:
+// C = 6 and C = 2 (DJ = 1, three passes at C = 2) 200,704 with the table in
+// shared memory; C = 3 (DJ = 2, one pass) 202,752 without it; the tiny
+// preset's d = 7 only at C = 7. A cluster step at C = 6 (profiled clocks a
+// step, thread 0 of each CTA, B = 1, NVIDIA H100 80GB HBM3, 700 W):
+// digits and forward 9.2k (19 %), key staging and MAC 14.4k (30 %),
+// monomial 5.3k (11 %), inverse and accumulate 11.8k (24 %), the barriers
+// and the exchange 7.9k (16 %): 48.6k clocks, against 148k of a one-block
+// step at B = 1 (54.7k, 69.7k, 7.3k, 14.1k, 2.4k). K2 alone, 335 steps
+// (examples/bench_kernels_torch.py --only k2 --batch 1,8,.., medians of 5;
+// the one-block kernels only / with the cluster variants, alternating on
+// one card, each range over two runs):
+//   B = 1: 24.107-24.114 / 7.932-7.939 ms (C = 6); 8: 23.437-23.440 /
+//   7.766-7.768 (6); 22: 23.213-23.217 / 11.530-11.535 (3); 44: 23.130-
+//   23.132 / 15.914 (2); 96: 23.103-23.106 / 23.095-23.102 (1); 1024:
+//   185.254-186.474 / 186.208-186.472 (1).
+// Tried and dropped: a bulk prefetch of the next step's planes into the L2
+// cache (-1.2 % at C = 6, +3.4 % at C = 2); RLOG 3 for the cluster
+// variants, so that the forward passes of two polynomials keep all 512
+// threads busy (+2.7 % at C = 6, -2 % at C = 3); the ring three planes
+// ahead (NST - 1) on the cluster variants (-2.2 % at C = 6, nothing at 3
+// and 2), which leaves one iteration, not two, between a thread's reads
+// of a slot and the copy that overwrites it.
+//
 // Ragged batches: samples beyond n_msgs are loaded as zeros and not stored.
 //
 // Several keys (one a recipient, core/detector.py RecipientsDetector): the
@@ -132,23 +188,27 @@
 // live across the NTT passes); 256 threads a block had no spill at the
 // second level and was slower at both (156.1 and 254.8 ms against 105.7
 // and 210.5 ms then), so the spill stays.
+#include <type_traits>
+
 #include "blind_rotate.cuh"
 
 // The layout constants of the instantiation for (log_n, q, d, log_b):
-// out = {S, DJ, RLOG, word bytes, TW_FWD, TW_INV, MONO_SHARED}; non-zero if
-// there is none. The typedefs of blind_rotate.cuh are the only table of
-// them: ops/fused.py br_layout asks here when it lays a key out.
+// out = {S, DJ, RLOG, word bytes, TW_FWD, TW_INV, MONO_SHARED, the cluster
+// sizes of its cluster variants as bits (bit C)}; non-zero if there is none.
+// The typedefs of blind_rotate.cuh are the only table of them: ops/fused.py
+// br_layout asks here when it lays a key out.
 extern "C" int omr_blind_rotate_config(int log_n, int64_t q, int d, int log_b, int* out) {
-#define OMR_BR_TRY(C)                                                        \
+#define OMR_BR_TRY(C, CLUSTERS)                                              \
   if (log_n == C::LOG_N && (u64)q == C::F::Q && d == C::D && log_b == C::LOG_B) { \
     out[0] = C::S; out[1] = C::DJ; out[2] = C::RLOG; out[3] = (int)sizeof(C::W); \
     out[4] = C::TW_FWD; out[5] = C::TW_INV; out[6] = C::MONO_SHARED;          \
+    out[7] = CLUSTERS;                                                        \
     return 0;                                                                 \
   }
-  OMR_BR_TRY(BrL1)
-  OMR_BR_TRY(BrL2)
-  OMR_BR_TRY(BrTinyL1)
-  OMR_BR_TRY(BrTinyL2)
+  OMR_BR_TRY(BrL1, 0)
+  OMR_BR_TRY(BrL2, (1 << BrL2C2::CL) | (1 << BrL2C3::CL) | (1 << BrL2C6::CL))
+  OMR_BR_TRY(BrTinyL1, 0)
+  OMR_BR_TRY(BrTinyL2, 1 << BrTinyL2C7::CL)
 #undef OMR_BR_TRY
   return (int)cudaErrorInvalidValue;
 }
@@ -174,4 +234,44 @@ extern "C" int omr_blind_rotate(
   if (matches<BrTinyL1>(a)) return launch<BrTinyL1>(a);
   if (matches<BrTinyL2>(a)) return launch<BrTinyL2>(a);
   return (int)cudaErrorInvalidValue;
+}
+
+// The cluster variant with `cluster` CTAs a sample of the configuration for
+// (log_n, q, d, log_b), through `act`; cudaErrorInvalidValue if there is
+// none.
+template <class Act>
+static int with_cluster(int log_n, int64_t q, int d, int log_b, int cluster, Act act) {
+  const BrArgs sig{nullptr, nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, 0, 0, log_n, d, log_b, q, 0, nullptr, 0};
+#define OMR_BR_CLUSTER(C) \
+  if (matches<C>(sig) && cluster == C::CL) return act((C*)nullptr);
+  OMR_BR_CLUSTER(BrL2C2)
+  OMR_BR_CLUSTER(BrL2C3)
+  OMR_BR_CLUSTER(BrL2C6)
+  OMR_BR_CLUSTER(BrTinyL2C7)
+#undef OMR_BR_CLUSTER
+  return (int)cudaErrorInvalidValue;
+}
+
+// omr_blind_rotate on clusters of `cluster` CTAs, one a sample: `blocks` is
+// the grid in CTAs, n_msgs / per_key keys of per_key clusters.
+extern "C" int omr_blind_rotate_cluster(
+    const int64_t* acc_in, int64_t* acc_out, const int64_t* amounts,
+    int64_t n_msgs, int n_steps, const void* key, const void* mono,
+    const int* orders, const void* tw_fwd, const void* tw_inv, uint64_t n_inv,
+    uint64_t n_inv_sh, int log_n, int64_t q, int d, int log_b, int blocks,
+    void* stream, int64_t per_key, int cluster) {
+  const BrArgs a{acc_in, acc_out, amounts, n_msgs, n_steps, key, mono, orders,
+                 tw_fwd, tw_inv, n_inv, n_inv_sh, log_n, d, log_b, q, blocks, stream,
+                 per_key};
+  return with_cluster(log_n, q, d, log_b, cluster,
+                      [&](auto* c) { return launch<std::remove_pointer_t<decltype(c)>>(a); });
+}
+
+// *out: the clusters of that variant the current card holds at once.
+extern "C" int omr_blind_rotate_cluster_fit(int log_n, int64_t q, int d, int log_b, int cluster,
+                                            int* out) {
+  return with_cluster(log_n, q, d, log_b, cluster, [&](auto* c) {
+    return cluster_fit<std::remove_pointer_t<decltype(c)>>(out);
+  });
 }

@@ -28,6 +28,7 @@ struct BrConfig : NttPlan<W_, LOG_N_, Q_, RLOG_> {
   static constexpr int S = S_, T = T_, DJ = DJ_, NST = NST_;
   static constexpr bool PROFILED = false;     // see BrProfiled
   static constexpr bool PLANE_STAMPS = false;  // see BrProfiled
+  static constexpr int CL = 1;                // CTAs a sample's cluster: see BrCluster
   static constexpr int VEC = 2;               // consecutive slots per thread group
   static constexpr int G = N / (VEC * T);     // slot groups per thread
   static constexpr int JP = D / DJ;           // digit passes per step
@@ -80,6 +81,39 @@ struct BrConfig : NttPlan<W_, LOG_N_, Q_, RLOG_> {
   static __device__ __forceinline__ W digit(W uh, int j) {
     const int dj = (int)((uh >> (LOG_B * j)) & (W)((1u << LOG_B) - 1)) - (int)HALF_B;
     return dj < 0 ? (W)Q_ - (W)(-dj) : (W)dj;
+  }
+};
+
+// ---------------------------------------------------------- clusters
+// The cluster variant of a one-sample configuration K: a sample is served
+// by a cluster of CL CTAs, CTA rank j taking the key's digits
+// j DPC .. (j + 1) DPC - 1, DJ of them a pass (a BrConfig of its own
+// digit buffer), and its 12 DPC key planes a step from K's key layout.
+// The kernel sums the CTAs' partial products over the cluster before the
+// inverse transforms (blind_rotate.cu, "Clusters").
+template <class K, int CL_, int DJ_>
+struct BrCluster : BrConfig<typename K::W, K::LOG_N, K::D, K::LOG_B, K::F::Q, 1, K::T, DJ_,
+                            K::RLOG, K::NST> {
+  static constexpr int CL = CL_;
+  static constexpr int D = K::D, DJ = DJ_;
+  static constexpr int DPC = D / CL;              // digits of a CTA
+  static constexpr int JP = DPC / DJ;             // digit passes a step of a CTA
+  static constexpr int KEY_DJ = K::DJ, KEY_JP = D / KEY_DJ;  // the key's layout
+  static constexpr int CTA_PLANES = 12 * DPC;     // key planes a step of a CTA
+  static_assert(K::S == 1 && CL >= 2 && CL <= 8 && D % CL == 0 && DPC % DJ == 0, "cluster");
+  // plane l of the CTA's own consumption order (step, pass, row, digit of
+  // the pass, in, out) -> its plane in a key of K's layout (step, pass,
+  // row, digit of the pass, in, out)
+  static __device__ __forceinline__ int key_plane(int l, int rank) {
+    const int co = l & 3;
+    int t = l >> 2;
+    const int jj = t % DJ;
+    t /= DJ;
+    const int r = t % 3;
+    t /= 3;
+    const int jp = t % JP, step = t / JP;
+    const int j = rank * DPC + jp * DJ + jj;
+    return (((step * KEY_JP + j / KEY_DJ) * 3 + r) * KEY_DJ + j % KEY_DJ) * 4 + co;
   }
 };
 
@@ -199,6 +233,8 @@ struct BrAccumulate {
 // mono (2N) words psi^e - 1 (copied to shared memory where the
 // configuration has room, C::MONO_SHARED); orders (N) int32 base orders;
 // tw_fwd / tw_inv: per-pass twiddles, each followed by its companion.
+// A cluster configuration (C::CL > 1, S = 1) runs as clusters of CL CTAs,
+// cluster i serving sample i (blind_rotate.cu, "Clusters").
 template <class C>
 __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
     const i64* __restrict__ acc_in, i64* __restrict__ acc_out,
@@ -212,9 +248,10 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
   typedef typename C::Wide Wide;
   typedef typename Wide::T WideT;
   constexpr int N = C::N, S = C::S, G = C::G, VEC = C::VEC, DJ = C::DJ, NST = C::NST;
+  constexpr int CL = C::CL;
   constexpr int TWO_N_MASK = 2 * N - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  W* sm = reinterpret_cast<W*>(smem_raw);
+  W* sm = reinterpret_cast<W*>(OMR_CTA_SMEM(smem_raw));
   W* ring = sm + C::OFF_RING;
   const SharedTable<W> tw_f{reinterpret_cast<const Operand<W>*>(sm + C::OFF_TWF)};
   const CachedTable<W> tw_i{reinterpret_cast<const Operand<W>*>(tw_inv)};
@@ -223,22 +260,31 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
   // the block's samples: S of one key's per_key, from sample msg0 on; the
   // last block of a key masks those beyond the key's, so a block never
   // straddles two keys. With one key (per_key == n_msgs) this is block
-  // b's samples b S .. b S + S - 1.
+  // b's samples b S .. b S + S - 1. A cluster takes the place of a block
+  // (its one sample) and its CTAs are told apart by their rank.
+  unsigned rank = 0;
+  if constexpr (CL > 1) rank = cluster_ctarank();
+  const unsigned unit = blockIdx.x / CL;
   const long long key_blocks = (per_key + S - 1) / S;
-  const int key_index = (int)(blockIdx.x / key_blocks);
-  const long long key_lo = (blockIdx.x - key_index * key_blocks) * S;
+  const int key_index = (int)(unit / key_blocks);
+  const long long key_lo = (unit - key_index * key_blocks) * S;
   const long long msg0 = key_index * per_key + key_lo;
   const int n_valid = per_key - key_lo < S ? (int)(per_key - key_lo) : S;
 
   // key pipeline: each thread stages, for itself, the VEC slots of its G
   // groups of every plane of its block's key (the stacked keys' planes
-  // first_plane .. end_plane - 1), NST - 2 planes ahead of their use
+  // first_plane .. end_plane - 1), NST - 2 planes ahead of their use; a
+  // CTA of a cluster its CTA_PLANES of each step's, counted from
+  // first_plane in the order it consumes them
   const int first_plane = key_index * n_steps * C::PLANES;
-  const int end_plane = first_plane + n_steps * C::PLANES;
+  int end_plane = first_plane + n_steps * C::PLANES;
+  if constexpr (CL > 1) end_plane = first_plane + n_steps * C::CTA_PLANES;
   int produced = first_plane, consumed = first_plane;
   auto stage_next = [&]() {
     if (produced < end_plane) {
       const W* src = key + (size_t)produced * N;
+      if constexpr (CL > 1)
+        src = key + (size_t)(first_plane + C::key_plane(produced - first_plane, rank)) * N;
       W* dst = ring + (produced & (NST - 1)) * N;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -289,7 +335,9 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
         __syncthreads();  // the last pass's digits have been read
         clk.lap(BR_BARRIER);
       }
-      fwd_ntt<C, C::T>(S * DJ * 2, tw_f, BrDigits<C>{sm + C::OFF_ACC, jp * DJ}, digits, digits);
+      int j0 = jp * DJ;
+      if constexpr (CL > 1) j0 += rank * C::DPC;
+      fwd_ntt<C, C::T>(S * DJ * 2, tw_f, BrDigits<C>{sm + C::OFF_ACC, j0}, digits, digits);
       clk.lap(BR_DIGITS_FWD);
       // multiply-accumulate against the three RGSW rows, lazily: one
       // reduction per (row, output) and pass
@@ -393,13 +441,40 @@ __global__ void __launch_bounds__(C::T, 1) blind_rotate_kernel(
       }
     }
     clk.lap(BR_MONOMIAL);
-    __syncthreads();
+    if constexpr (CL == 1) {
+      __syncthreads();
+    } else {
+      // the CTAs' partial products summed: each CTA sums its share of the
+      // 2N (polynomial, slot) pairs over the cluster's digit buffers and
+      // writes the sum back into all of them. Residues below Q: CL of them
+      // stay below 2^(BITS + 3) and their sum is the one-block product.
+      cluster_sync();  // every CTA's partial products are in place
+      constexpr int PAIRS = 2 * N;
+      W* peer[CL];
+#pragma unroll
+      for (int r = 0; r < CL; ++r) peer[r] = cluster_map(sm, r);
+      for (int i = (int)rank * PAIRS / CL + tid; i < ((int)rank + 1) * PAIRS / CL; i += C::T) {
+        const int at = C::OFF_DIG + (i / N) * C::NP + C::pad(i % N);
+        W v[CL];
+#pragma unroll
+        for (int r = 0; r < CL; ++r) v[r] = peer[r][at];
+        u64 sum = 0;
+#pragma unroll
+        for (int r = 0; r < CL; ++r) sum += v[r];
+        const W total = F::template reduce64<F::BITS + ceil_log2(CL)>(sum);
+#pragma unroll
+        for (int r = 0; r < CL; ++r) peer[r][at] = total;
+      }
+      cluster_sync();  // every sum is in every buffer; no CTA reads a peer's until the next step's
+    }
     clk.lap(BR_BARRIER);
     inv_ntt<C, C::T>(S * 2, tw_i, n_inv, n_inv_sh, BrProducts<C>{sm + C::OFF_DIG},
                      BrProducts<C>{sm + C::OFF_DIG}, BrAccumulate<C>{sm + C::OFF_ACC});
     clk.lap(BR_INV_ACC);
   }
   cp_async_wait<0>();
+  if constexpr (CL > 1)
+    if (rank != 0) return;  // CTA rank 0 writes the cluster's sample
 
   for (int k = tid; k < S * 2 * N; k += C::T) {
     const int s = k / (2 * N);
@@ -420,6 +495,12 @@ typedef BrConfig<u64, 11, 6, 7, 1125899906826241ull, 1, 512, 2, 4, 4> BrL2;
 // the small test preset (core/params.py OmrParameters.tiny)
 typedef BrConfig<u32, 8, 5, 4, 33551873ull, 4, 128, 5, 4, 8> BrTinyL1;
 typedef BrConfig<u64, 9, 7, 5, 274877905921ull, 1, 128, 1, 3, 4> BrTinyL2;
+// the second levels' cluster variants, one a divisor C of d in 2..8:
+//                 K          C  DJ
+typedef BrCluster<BrL2, 2, 1> BrL2C2;
+typedef BrCluster<BrL2, 3, 2> BrL2C3;
+typedef BrCluster<BrL2, 6, 1> BrL2C6;
+typedef BrCluster<BrTinyL2, 7, 1> BrTinyL2C7;
 
 struct BrArgs {
   const int64_t* acc_in;
@@ -452,12 +533,30 @@ static int launch(const BrArgs& a) {
   if (err != cudaSuccess) return (int)err;
   if (a.per_key < 1 || a.n_msgs % a.per_key ||
       a.n_msgs / a.per_key * a.n_steps > INT32_MAX / C::PLANES ||
-      (int64_t)a.blocks != a.n_msgs / a.per_key * ((a.per_key + C::S - 1) / C::S))
+      (int64_t)a.blocks != a.n_msgs / a.per_key * ((a.per_key + C::S - 1) / C::S) * C::CL)
     return (int)cudaErrorInvalidValue;
-  OMR_LAUNCH(blind_rotate_kernel<C>, (unsigned)a.blocks, C::T, C::SMEM_BYTES, a.stream,
-             (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
-             (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
-             (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh,
-             (long long)a.per_key);
+  if constexpr (C::CL == 1) {
+    OMR_LAUNCH(blind_rotate_kernel<C>, (unsigned)a.blocks, C::T, C::SMEM_BYTES, a.stream,
+               (const i64*)a.acc_in, (i64*)a.acc_out, (const i64*)a.amounts,
+               (long long)a.n_msgs, a.n_steps, (const W*)a.key, (const W*)a.mono, a.orders,
+               (const W*)a.tw_fwd, (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh,
+               (long long)a.per_key);
+  } else {
+    err = omr_launch_cluster(blind_rotate_kernel<C>, C::CL, (unsigned)a.blocks, C::T,
+                             C::SMEM_BYTES, a.stream, (const i64*)a.acc_in, (i64*)a.acc_out,
+                             (const i64*)a.amounts, (long long)a.n_msgs, a.n_steps,
+                             (const W*)a.key, (const W*)a.mono, a.orders, (const W*)a.tw_fwd,
+                             (const W*)a.tw_inv, (W)a.n_inv, (W)a.n_inv_sh,
+                             (long long)a.per_key);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
+}
+
+// Clusters of C the card holds at once.
+template <class C>
+static int cluster_fit(int* n) {
+  cudaError_t err = allow_smem(blind_rotate_kernel<C>, C::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  return (int)omr_cluster_fit(blind_rotate_kernel<C>, C::CL, C::T, C::SMEM_BYTES, n);
 }

@@ -189,6 +189,66 @@ struct WideAcc<F, u64> {
   kernel<<<grid, block, smem, (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #endif
 
+// Thread-block clusters (sm_90): the CTA's rank in its cluster, a barrier
+// of all the cluster's threads (release / acquire: shared-memory writes
+// before it, local or a peer's, are seen after it), a peer's copy of a
+// shared variable (generic addresses), the base of the CTA's dynamic shared
+// memory (a macro: taken through a function, the kernels' shared accesses
+// compiled to other code), a launch of clusters of `cluster` CTAs and the
+// clusters of a kernel that the card holds at once. A host build brings its
+// own.
+#ifdef __CUDACC__
+#define OMR_CTA_SMEM(raw) (raw)
+static __device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+static __device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+template <class T>
+static __device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  u64 a;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(a) : "l"(reinterpret_cast<u64>(p)), "r"(rank));
+  return reinterpret_cast<T*>(a);
+}
+template <class... P, class... A>
+static cudaError_t omr_launch_cluster(void (*kernel)(P...), unsigned cluster, unsigned grid,
+                                      unsigned block, size_t smem, void* stream, A... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+template <class K>
+static cudaError_t omr_cluster_fit(K kernel, unsigned cluster, unsigned block, size_t smem,
+                                   int* n) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, (const void*)kernel, &cfg);
+}
+#endif
+
 // Dynamic shared memory above 48 KB must be opted into per kernel, up to
 // what one block may have on the H100.
 constexpr int SMEM_BLOCK_MAX = 232448;

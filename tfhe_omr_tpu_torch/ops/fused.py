@@ -28,6 +28,11 @@ launch split into ``recipients`` equal runs, run r taking recipient r's
 key, and one kernel launch serves them all (``csrc/blind_rotate.cu``,
 ``csrc/trace.cu``: a block's samples are one recipient's); the plain
 versions take each run with its recipient's key.
+
+A second-level blind rotation whose one-sample blocks would leave SMs
+idle runs each sample on a thread-block cluster of C CTAs instead, each
+CTA taking d / C of the gadget digits (:func:`cluster_size` chooses C from
+the launch's shape and the card).
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ class BrLayout:
     radix-2 stages per NTT pass, entries of the regrouped forward / inverse
     twiddle tables; and, for a blind rotation, whether its monomial stage
     reads the psi-power table from shared memory (where the configuration
-    has room beside the rest) rather than through the read-only cache."""
+    has room beside the rest) rather than through the read-only cache, and
+    the cluster sizes of its cluster variants (none for the first level)."""
 
     word_bits: int
     s: int
@@ -63,6 +69,7 @@ class BrLayout:
     tw_fwd: int
     tw_inv: int
     mono_shared: bool = False
+    clusters: tuple[int, ...] = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -71,12 +78,13 @@ class BrLayout:
 
 def _layout(config, what: str, ntt: Ntt, gadget: SignedGadget) -> BrLayout:
     sig = (ntt.log_n, ntt.field.q, gadget.d, gadget.log_b)
-    out = (ctypes.c_int * 7)()  # the trace's query fills the first six
+    out = (ctypes.c_int * 8)()  # the trace's query fills the first six
     if config(*sig, out):
         raise ValueError(
             f"no {what} kernel is instantiated for (log N, q, d, log B) = {sig}")
-    s, dj, rlog, word_bytes, tw_fwd, tw_inv, mono_shared = out
-    return BrLayout(8 * word_bytes, s, dj, rlog, tw_fwd, tw_inv, bool(mono_shared))
+    s, dj, rlog, word_bytes, tw_fwd, tw_inv, mono_shared, clusters = out
+    return BrLayout(8 * word_bytes, s, dj, rlog, tw_fwd, tw_inv, bool(mono_shared),
+                    tuple(c for c in range(2, CLUSTER_MAX + 1) if clusters >> c & 1))
 
 
 def br_layout(ntt: Ntt, gadget: SignedGadget) -> BrLayout:
@@ -108,6 +116,44 @@ def n_blocks(n_msgs: int, s: int) -> int:
     """Blocks of a launch that serves ``s`` samples per block; the last
     block masks the samples beyond ``n_msgs`` inside the kernel."""
     return -(-n_msgs // s)
+
+
+#: the most CTAs a cluster may have on every card of the architecture
+CLUSTER_MAX = 8
+
+
+def cluster_size(blocks: int, sms: int, fits: dict[int, int]) -> int:
+    """CTAs a sample for a launch of ``blocks`` one-sample blocks on a card
+    of ``sms`` SMs: the largest C of the kernel's cluster variants
+    (``fits``: {C: clusters of C CTAs the card holds at once}, each C one
+    that :attr:`BrLayout.clusters` reports, :func:`cluster_fits`) with which
+    every cluster runs at once (``blocks * C <= sms`` and ``blocks <=
+    fits[C]``); else 1, the one-block kernel. On an H100 a cluster of 6, 3
+    or 2 runs K2's chain in about a third, a half or two thirds of one
+    block's time (``csrc/blind_rotate.cu``, "Clusters"), and two waves of
+    clusters take longer than one of a smaller C, so a launch that would
+    leave SMs idle takes the largest C that runs in one wave."""
+    for c in sorted(fits, reverse=True):
+        if blocks * c <= sms and blocks <= fits[c]:
+            return c
+    return 1
+
+
+def cluster_fits(ntt: Ntt, gadget: SignedGadget, lay: BrLayout,
+                 device: torch.device) -> dict[int, int]:
+    """{C: clusters of the cluster variant of C CTAs that ``device`` holds
+    at once} for each cluster size of layout ``lay`` (the CUDA occupancy
+    query; empty for a layout without cluster variants)."""
+    lib = build.library()
+    sig = (ntt.log_n, ntt.field.q, gadget.d, gadget.log_b)
+    fits = {}
+    for c in lay.clusters:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.omr_blind_rotate_cluster_fit(*sig, c, ctypes.byref(out))
+        build.check(lib, rc, f"blind-rotation cluster of {c} (occupancy)")
+        fits[c] = out.value
+    return fits
 
 
 def kernel_key_layout(bsk: torch.Tensor, n_steps: int, n: int, d: int, dj: int,
@@ -195,8 +241,9 @@ class BlindRotateKey(StackedKey):
     one recipient's. On the CPU both are kept as given. On a card only the
     kernel's layout is held (:func:`kernel_key_layout`, int32 words for a
     field below 2**31, no companions: the kernel reduces its sums lazily),
-    beside the kernel's tables in its word size. Either is held as a stack
-    of one recipient's key.
+    beside the kernel's tables in its word size and the clusters of each
+    cluster variant that the card holds at once (:func:`cluster_fits`).
+    Either is held as a stack of one recipient's key.
     """
 
     def __init__(self, bsk: torch.Tensor, bsk_sh: torch.Tensor, ntt: Ntt,
@@ -218,12 +265,16 @@ class BlindRotateKey(StackedKey):
             self.mono = ntt.mono.to(lay.dtype)
             self.orders = ntt.base_orders_t.to(torch.int32)
             self.n_inv = ntt.n_inv
+            self.cluster_fits = cluster_fits(ntt, gadget, lay, bsk.device)
 
     def to(self, ntt: Ntt) -> "BlindRotateKey":
         """This key for another device: ``ntt`` is that device's NTT of the
         same ring (:func:`_key_on`)."""
-        return _key_on(self, ntt, make_blind_rotate(ntt.field, ntt, self.gadget),
-                       ("tw_fwd", "tw_inv", "mono", "orders"))
+        other = _key_on(self, ntt, make_blind_rotate(ntt.field, ntt, self.gadget),
+                        ("tw_fwd", "tw_inv", "mono", "orders"))
+        if other.on_card:
+            other.cluster_fits = cluster_fits(ntt, self.gadget, self.layout, ntt.device)
+        return other
 
     def reference(self, r: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
         """(bsk, bsk_sh) of recipient ``r`` in the reference layout and slot
@@ -258,7 +309,10 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     kernel serves ``layout.s`` samples per block and masks the rest of the
     last block. With a stack of R keys, M splits into R equal runs, run r
     under recipient r's key, in one launch: each run takes blocks of its
-    own and masks the rest of its last one.
+    own and masks the rest of its last one. Where the kernel has cluster
+    variants and :func:`cluster_size` gives C > 1, a cluster of C CTAs
+    serves each sample in place of a block; the launch counts as
+    ``<key name>_cluster`` in ``build.LAUNCHES``.
 
     With ``stage_clocks``, an int64 tensor of (blocks, len(BR_STAGES)) on
     the card (blocks: :func:`n_blocks` of M and ``key.layout.s``), the
@@ -298,18 +352,25 @@ def blind_rotate(acc: torch.Tensor, amounts: torch.Tensor,
     if n_msgs == 0:
         return out
     lib = build.library()
+    cluster = 1
+    if stage_clocks is None and key.cluster_fits:
+        sms = torch.cuda.get_device_properties(acc.device).multi_processor_count
+        cluster = cluster_size(blocks, sms, key.cluster_fits)
     args = (build.ptr(acc), build.ptr(out), build.ptr(amounts), n_msgs,
             key.n_steps, build.ptr(key.keys[0]), build.ptr(key.mono),
             build.ptr(key.orders), build.ptr(key.tw_fwd), build.ptr(key.tw_inv),
             key.n_inv, key.n_inv_sh, ntt.log_n, ntt.field.q, g.d, g.log_b,
-            blocks, build.stream_of(acc), per_key)
+            blocks * cluster, build.stream_of(acc), per_key)
     with torch.cuda.device(acc.device):
-        if stage_clocks is None:
-            rc = lib.omr_blind_rotate(*args)
-        else:
+        if stage_clocks is not None:
             rc = lib.omr_blind_rotate_profiled(*args, build.ptr(stage_clocks),
                                                int(plane_stamps))
-    name = key.name if stage_clocks is None else f"{key.name}_profiled"
+        elif cluster > 1:
+            rc = lib.omr_blind_rotate_cluster(*args, cluster)
+        else:
+            rc = lib.omr_blind_rotate(*args)
+    name = (f"{key.name}_profiled" if stage_clocks is not None
+            else f"{key.name}_cluster" if cluster > 1 else key.name)
     build.check(lib, rc, name)
     build.LAUNCHES[name] += 1
     return out

@@ -170,6 +170,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("omr_ntt", _NTT_ARGS),
         ("omr_blind_rotate", _BR_ARGS),
         ("omr_blind_rotate_profiled", _BR_ARGS + [_P, _I32]),
+        ("omr_blind_rotate_cluster", _BR_ARGS + [_I32]),
+        ("omr_blind_rotate_cluster_fit", [_I32, _I64, _I32, _I32, _I32, _P]),
         ("omr_trace", _TRACE_ARGS),
         ("omr_probe_chain", _PROBE_CHAIN_ARGS),
         ("omr_probe_chain_plan", _PROBE_CHAIN_PLAN_ARGS),

@@ -76,7 +76,8 @@ def through_kernels(ctx, inputs: dict) -> dict:
     wrappers on ``ctx``'s device (on a card K1, K2, K3 and the NTT kernels
     K5 (q1) and K4 (q2)), as numpy arrays in the pins' layouts. Each pin's
     shape is one the kernels take as it is: 4 samples of one CMUX step (one
-    block of 4 at the first level, 4 blocks of 1 at the second), 4
+    block of 4 at the first level, 4 blocks of 1 at the second, or on a
+    card with room 4 clusters: ops/fused.py cluster_size), 4
     messages of the trace, 2 rows of each NTT."""
     import torch
 
